@@ -1,0 +1,17 @@
+"""rewriting_torch — the PyTorch/CUDA port of the rewriting framework.
+
+The same functional design as the JAX package it is held against: a
+generator is a :class:`~rewriting_torch.core.StagePipeline` of named stage
+functions over a flat params dict and a :class:`~rewriting_torch.core.DataBag`
+of tensors; surgery is slicing the pipeline; a weight edit is a rank-1
+constrained solve on one conv's weight.  Inside the model, activations are
+NCHW; the rewriter's public accessors keep the NHWC shapes of the JAX
+package so the two can be compared directly.
+
+The FIR blur after every up-conv runs as a hand-written CUDA kernel
+(``csrc/blur2d.cu``) on a CUDA tensor and as its plain PyTorch version on a
+CPU tensor.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; they raise if CUDA is asked for and absent.
+"""
+
+__version__ = "0.1.0"
