@@ -8,10 +8,13 @@ constrained solve on one conv's weight.  Inside the model, activations are
 NCHW; the rewriter's public accessors keep the NHWC shapes of the JAX
 package so the two can be compared directly.
 
-The FIR blur after every up-conv runs as a hand-written CUDA kernel
-(``csrc/blur2d.cu``) on a CUDA tensor and as its plain PyTorch version on a
-CPU tensor.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; they raise if CUDA is asked for and absent.
+Three hand-written CUDA kernels run on a CUDA tensor, each with its plain
+PyTorch version for a CPU tensor: the FIR blur after every up-conv of the
+seq pipeline, with its backward (``csrc/blur2d.cu``); the fused up-conv +
+blur + epilogue of the sampling pipeline ``pipeline_fast``
+(``csrc/upconv_blur.cu``); and the 2x FIR upsample of wide maps
+(``csrc/upsample2x.cu``).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; they raise if CUDA is asked for and absent.
 """
 
 __version__ = "0.1.0"

@@ -49,7 +49,13 @@ class StagePipeline:
 
     def __call__(self, params: Dict[str, Any], bag: DataBag) -> DataBag:
         for stage in self.stages:
-            bag = stage.fn(params.get(stage.name, {}), bag)
+            # a stage fn may take the FULL params dict (fn._full_params =
+            # True): the fused stages of pipeline_fast read the params of
+            # several seq stages; the seq pipeline never does
+            if getattr(stage.fn, "_full_params", False):
+                bag = stage.fn(params, bag)
+            else:
+                bag = stage.fn(params.get(stage.name, {}), bag)
         return bag
 
     def stage_names(self) -> Tuple[str, ...]:

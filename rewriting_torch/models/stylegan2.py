@@ -1,13 +1,22 @@
-"""StyleGAN2 generator as a stage pipeline (the seq pipeline).
+"""StyleGAN2 generator as a stage pipeline: the seq pipeline and the
+sampling pipeline ``pipeline_fast``.
 
 Counterpart of the JAX package's ``models/stylegan2.py`` ``SeqStyleGAN2``
-(:587-783), weight-compatible with the rosinality port.  The modulated
+(:587-869), weight-compatible with the rosinality port.  The modulated
 conv is split into modulation -> adain -> dconv -> blur so that the linear
 conv (``dconv``) can be rewritten as a linear associative memory.  Stage
 names mirror the reference module paths (``layer8.sconv.mconv.dconv``), so
 saved edit requests and surgery code work unchanged.
 
-Layout: activations are NCHW.  Weights are in torch order, as in the JAX
+``pipeline_fast``, the default of ``__call__``, has the same stages and
+reads the same params; at every upsampling layer with a 4-tap FIR its
+dconv runs the fused up-conv + blur + epilogue kernel (K1,
+``ops/upconv_blur.py``) and its blur, noise and activate stages pass the
+bag through (JAX package :237-308).  The statistics and the edits run on
+``pipeline``, whose stage boundaries they read.
+
+Layout: activations are NCHW inside; ``__call__`` returns NHWC images, as
+the JAX package's does.  Weights are in torch order, as in the JAX
 package: dconv ``(1, O, I, 3, 3)``, to_rgb ``(1, 3, C, 1, 1)``; the const
 input is ``(1, C, 4, 4)`` and the noise buffers ``(1, 1, h, w)``.
 
@@ -31,6 +40,8 @@ from ..core import DataBag, Stage, StagePipeline
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
 from ..ops.upfirdn2d import blur2d
 from ..ops.precision import apply_parity_tier
+from ..ops.upconv_blur import (fused_epilogue_active, fused_upconv_active,
+                               upconv_blur)
 from ..utils.device import resolve_device
 
 
@@ -148,13 +159,17 @@ def _make_dconv(in_c, kernel_size, upsample):
             out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
         else:
             out = F.conv2d(x, w, padding=kernel_size // 2)
-        # demod = rsqrt(sum_{I,kh,kw} (scale*W*style)^2 + 1e-8) per (B, O),
-        # applied after the conv so the conv stays a plain linear map
-        w_sq = torch.sum(w * w, dim=(-2, -1))    # (O, I)
-        style = d["style"]
-        demod = torch.rsqrt((style * style) @ w_sq.t() + 1e-8)
+        # demod applied after the conv so the conv stays a plain linear map
+        demod = _demod(w, d["style"])
         return DataBag(d, fmap=out * demod[:, :, None, None])
     return fn
+
+
+def _demod(w, style):
+    """rsqrt(sum_{I,kh,kw} (scale*W*style)^2 + 1e-8) per (B, O), from the
+    scaled (O, I, kh, kw) weight."""
+    w_sq = torch.sum(w * w, dim=(-2, -1))    # (O, I)
+    return torch.rsqrt((style * style) @ w_sq.t() + 1e-8)
 
 
 def _make_blur(blur_kernel, pad, upsample_factor):
@@ -162,6 +177,65 @@ def _make_blur(blur_kernel, pad, upsample_factor):
 
     def fn(params, d: DataBag) -> DataBag:
         return DataBag(d, fmap=blur2d(d["fmap"], kern, pad, upsample_factor))
+    return fn
+
+
+def _make_fused_upconv_dconv(prefix, in_c, blur_kernel):
+    """pipeline_fast's dconv at an upsampling layer (JAX package :237-282):
+    with the fused kernel on, dconv AND blur (and, with the epilogue,
+    noise and activate too) in one pass of K1; else the seq dconv, and
+    the stages after it run as in the seq pipeline.  Takes the FULL params
+    (``_full_params``): the epilogue reads the noise and activate stages'
+    parameters."""
+    seq_fn = _make_dconv(in_c, 3, True)
+    scale = 1.0 / math.sqrt(in_c * 9)
+    k = np.asarray(blur_kernel, np.float64)
+    kf = tuple(float(v) for v in (k / k.sum()) * 2.0)  # 1-D taps with gain
+
+    def fn(params, d: DataBag) -> DataBag:
+        own = params.get(f"{prefix}.mconv.dconv", {})
+        if not fused_upconv_active():
+            return seq_fn(own, d)
+        w = own["weight"][0] * scale
+        wf = torch.flip(w, (-2, -1))             # correlation taps
+        x = d["fmap"]
+        # demod commutes with the channel-wise blur
+        demod = _demod(w, d["style"])
+        if not fused_epilogue_active():
+            return DataBag(d, fmap=upconv_blur(x, wf, kf)
+                           * demod[:, :, None, None])
+        b, _, h, wd = x.shape
+        noise = d.get(noise_key(2 * h, 2 * wd))
+        if noise is None:
+            noise = _reference_noise(b, 2 * h, 2 * wd, x.device)
+        noise = params[f"{prefix}.noise"]["weight"] * noise
+        bias = params[f"{prefix}.activate"]["bias"]
+        return DataBag(d, fmap=upconv_blur(x, wf, kf, demod, noise, bias))
+    fn._full_params = True
+    return fn
+
+
+def _make_shape_dispatch_blur(blur_kernel, pad, upsample_factor):
+    """pipeline_fast's blur paired with the fused dconv (JAX package
+    :285-296): the seq up-dconv emits (2H+1, 2W+1), still to blur; the
+    fused kernel emits the final even-sized (2H, 2W)."""
+    blur_fn = _make_blur(blur_kernel, pad, upsample_factor)
+
+    def fn(params, d: DataBag) -> DataBag:
+        if d["fmap"].shape[2] % 2 == 0:
+            return d
+        return blur_fn(params, d)
+    return fn
+
+
+def _make_epilogue_skip(seq_fn):
+    """pipeline_fast's noise / activate at a fused layer (JAX package
+    :299-308): the identity when the epilogue ran in the kernel, under the
+    same gate as the dconv stage."""
+    def fn(params, d: DataBag) -> DataBag:
+        if fused_epilogue_active():
+            return d
+        return seq_fn(params, d)
     return fn
 
 
@@ -242,6 +316,8 @@ class SeqStyleGAN2:
         stages: List[Stage] = [Stage("bag_in", _bag_in)]
         # name -> (kind, shapes...) read by init_params
         self._param_specs: Dict[str, tuple] = {}
+        # pipeline_fast's stages where they differ from the seq pipeline's
+        self._fast_overrides: Dict[str, object] = {}
 
         stages.append(Stage("style.0", _pixel_norm_latent))
         for i in range(n_mlp):
@@ -257,8 +333,9 @@ class SeqStyleGAN2:
         stages.append(Stage("input", _constant_input))
         self._param_specs["input"] = ("const", self.channels[4])
 
-        def styled_conv(prefix, in_c, out_c, upsample):
-            """layerN.{conv|sconv}: mconv(seq) + noise + activate."""
+        def styled_conv(prefix, in_c, out_c, upsample, res=None):
+            """layerN.{conv|sconv}: mconv(seq) + noise + activate; `res` is
+            the layer's output resolution."""
             sub = [Stage(f"{prefix}.mconv.modulation",
                          _make_modulation(style_dim)),
                    Stage(f"{prefix}.mconv.adain", _apply_style),
@@ -278,6 +355,20 @@ class SeqStyleGAN2:
             self._param_specs[f"{prefix}.noise"] = ("noise_w",)
             sub.append(Stage(f"{prefix}.activate", _fused_lrelu_stage))
             self._param_specs[f"{prefix}.activate"] = ("act_bias", out_c)
+            # K1 is specialised to 4-tap FIRs, so the overrides install
+            # only for those.  Where the JAX package's s2d tail engages
+            # (<= 32 channels at >= 512, :672-690; not ported) the port
+            # runs the exact seq stages.
+            if (upsample and len(self.blur_kernel) == 4
+                    and not (out_c <= 32 and (res or 0) >= 512)):
+                self._fast_overrides.update({
+                    f"{prefix}.mconv.dconv": _make_fused_upconv_dconv(
+                        prefix, in_c, self.blur_kernel),
+                    f"{prefix}.mconv.blur": _make_shape_dispatch_blur(
+                        self.blur_kernel, pad, factor),
+                    f"{prefix}.noise": _make_epilogue_skip(_noise_inject),
+                    f"{prefix}.activate": _make_epilogue_skip(
+                        _fused_lrelu_stage)})
             return sub
 
         def to_rgb(name, in_c, lat_idx, skip):
@@ -300,7 +391,7 @@ class SeqStyleGAN2:
             stages.append(Stage(f"layer{lat_i + 2}.lat{lat_i}",
                                 _make_pick_latent(lat_i)))
             stages.extend(styled_conv(f"layer{lat_i + 2}.sconv", in_c, out_c,
-                                      upsample=True))
+                                      upsample=True, res=2 ** i))
             stages.append(Stage(f"layer{lat_i + 3}.lat{lat_i + 1}",
                                 _make_pick_latent(lat_i + 1)))
             stages.extend(styled_conv(f"layer{lat_i + 3}.sconv", out_c, out_c,
@@ -311,6 +402,12 @@ class SeqStyleGAN2:
             lat_i += 2
         stages.append(Stage("output", _return_output))
         self.pipeline = StagePipeline(stages)
+        # the sampling pipeline: the same stages and params, K1 at the
+        # upsampling layers; the seq pipeline stays the surface that
+        # statistics and edits read
+        self.pipeline_fast = StagePipeline([
+            Stage(s.name, self._fast_overrides.get(s.name, s.fn))
+            for s in stages])
 
     # -- noise inputs -------------------------------------------------------
     def prepare_noise(self, batch: int) -> Dict[str, torch.Tensor]:
@@ -379,11 +476,20 @@ class SeqStyleGAN2:
                    else self.prepare_noise(z.shape[0]))
         return bag
 
-    def __call__(self, params, z, noise: Optional[dict] = None
-                 ) -> torch.Tensor:
-        """z (B, style_dim) -> NCHW image."""
+    def __call__(self, params, z, noise: Optional[dict] = None,
+                 fused: bool = False, fast: bool = True) -> torch.Tensor:
+        """z (B, style_dim) -> (B, H, W, 3) NHWC image.
+
+        fast=True (the default) runs ``pipeline_fast``, fast=False the seq
+        pipeline; the two agree to fp32 tolerance.  fused=True, the JAX
+        package's subpixel alternate (:329-370), is not ported."""
+        if fused:
+            raise NotImplementedError(
+                "the subpixel pipeline (fused=True) is not ported")
+        pipe = self.pipeline_fast if fast else self.pipeline
         with torch.no_grad():
-            return self.pipeline(params, self.make_bag(z, noise))["output"]
+            out = pipe(params, self.make_bag(z, noise))["output"]
+        return out.permute(0, 2, 3, 1).contiguous()
 
 
 def params_to(params, device) -> Dict[str, dict]:

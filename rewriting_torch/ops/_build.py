@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and includes
 no PyTorch header, so it compiles in seconds into
 ``rewriting_torch/_build/lib<name>.so``.  The build runs at first use and is
 keyed on a hash of the source and the flags: an unchanged source is not
-built again.  nvcc is found through ``$CUDA_HOME``, ``PATH`` or
-``/usr/local/cuda/bin``; a failed build raises with nvcc's output.
+built again.  :func:`build_all` starts one nvcc per source, all at once.
+nvcc is found through ``$CUDA_HOME``, ``PATH`` or ``/usr/local/cuda/bin``;
+a failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -54,28 +55,56 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _digest(source: Path) -> str:
+    return hashlib.sha256(source.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def _is_built(name: str) -> bool:
+    out = library_path(name)
+    stamp = out.with_name(out.name + ".sha256")
+    return (out.is_file() and stamp.is_file()
+            and stamp.read_text() == _digest(SOURCE_DIR / f"{name}.cu"))
+
+
+def build_all(names: Sequence[str]) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose library on disk was not built
+    from the same source and flags, one nvcc process per source, all
+    started together; returns the libraries' paths."""
+    todo = [n for n in dict.fromkeys(names) if not _is_built(n)]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        jobs = []
+        for name in todo:
+            source = SOURCE_DIR / f"{name}.cu"
+            out = library_path(name)
+            tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+            jobs.append((name, source, out, tmp, _digest(source),
+                         subprocess.Popen(nvcc_command(nvcc, source, tmp),
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE,
+                                          text=True)))
+        failed = []
+        for name, source, out, tmp, digest, proc in jobs:
+            _, stderr = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {source} "
+                              f"(exit {proc.returncode}):\n{stderr}")
+                continue
+            os.replace(tmp, out)
+            out.with_name(out.name + ".sha256").write_text(digest)
+            build_logs[name] = stderr
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return [library_path(n) for n in names]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library on disk was built from
     the same source and flags; returns the library's path."""
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = library_path(name)
-    stamp = out.with_name(out.name + ".sha256")
-    if out.is_file() and stamp.is_file() and stamp.read_text() == digest:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(find_nvcc(), source, tmp),
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {source} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    stamp.write_text(digest)
-    build_logs[name] = proc.stderr
-    return out
+    return build_all([name])[0]
 
 
 @functools.lru_cache(maxsize=None)

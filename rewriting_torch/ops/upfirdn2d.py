@@ -11,10 +11,14 @@ Counterpart of the JAX package's ``ops/upfirdn2d.py``: ``make_kernel``
 
 Layout: NCHW; the FIR kernel is shared by all channels (depthwise).
 
-``upfirdn2d`` and ``upsample2d`` are plain PyTorch: the model upsamples
-only the 3-channel RGB skip, which no TPU kernel served either.
-``blur2d`` dispatches on the tensor's device: a CPU tensor takes the plain
-version, a CUDA tensor the hand-written kernel of ``ops/blur2d.py``.
+``upfirdn2d`` is plain PyTorch.  ``upsample2d`` sends maps of 64 or more
+channels (a multiple of 8) whose output is exactly 2x to the polyphase
+upsample of ``ops/upsample2x.py`` (K3), as the JAX package does
+(:221-224); narrower maps, such as the model's 3-channel RGB skip, stay on
+``upfirdn2d``.  ``blur2d`` and K3 dispatch on the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor the hand-written kernel
+(``ops/blur2d.py``, K2, with its backward for a tensor that requires a
+gradient).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import blur2d as _blur
+from . import upsample2x as _up2
 
 
 def make_kernel(k) -> np.ndarray:
@@ -57,10 +62,21 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 def upsample2d(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
     """FIR upsample (reference Upsample): gain factor**2, pad
     ((p+1)//2 + factor - 1, p//2) with p = kh - factor."""
-    kernel = np.asarray(kernel, np.float32)
-    p = kernel.shape[0] - factor
-    return upfirdn2d(x, kernel * (factor ** 2), up=factor, down=1,
-                     pad=((p + 1) // 2 + factor - 1, p // 2))
+    kernel = np.asarray(kernel, np.float32) * (factor ** 2)
+    kh = kernel.shape[0]
+    p = kh - factor
+    pad = ((p + 1) // 2 + factor - 1, p // 2)
+    c = x.shape[1]
+    if (factor == 2 and c >= 64 and c % 8 == 0 and kernel.shape == (kh, kh)
+            and kh <= _up2.MAX_TAPS and _up2.is_2x(x.shape[2], kh, pad)
+            and _up2.is_2x(x.shape[3], kh, pad)):
+        kflip = np.ascontiguousarray(np.flip(kernel, (0, 1)))
+        if x.device.type == "cuda":
+            return _up2.upsample2x_cuda(x, kflip, pad)
+        if x.device.type == "cpu":
+            return _up2.upsample2x_reference(x, kflip, pad)
+        raise RuntimeError(f"upsample2d has no path for device {x.device}")
+    return upfirdn2d(x, kernel, up=factor, down=1, pad=pad)
 
 
 def blur2d(x: torch.Tensor, kernel, pad: Tuple[int, int],
@@ -68,12 +84,15 @@ def blur2d(x: torch.Tensor, kernel, pad: Tuple[int, int],
     """FIR blur (reference Blur): ``upfirdn2d(x, kernel * factor**2, pad)``.
 
     A CUDA tensor goes to the hand-written kernel, which launches or
-    raises; a CPU tensor goes to the plain version."""
+    raises (through its autograd Function when the tensor requires a
+    gradient); a CPU tensor goes to the plain version."""
     kernel = np.asarray(kernel, np.float32)
     if upsample_factor > 1:
         kernel = kernel * (upsample_factor ** 2)
     kflip = np.ascontiguousarray(np.flip(kernel, (0, 1)))
     if x.device.type == "cuda":
+        if x.requires_grad and torch.is_grad_enabled():
+            return _blur.Blur2dFunction.apply(x, kflip, pad)
         return _blur.blur2d_cuda(x, kflip, pad)
     if x.device.type == "cpu":
         return _blur.blur2d_reference(x, kflip, pad)

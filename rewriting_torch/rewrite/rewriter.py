@@ -4,8 +4,9 @@ memory and rewrite it with a rank-constrained weight edit.
 Counterpart of the JAX package's ``rewrite/rewriter.py`` ``GanRewriter``
 (:42-694) and ``SeqStyleGanRewriter`` (:718), cut to this port's edit
 loop: the three-way split, the shape probe, the key second moment and its
-ZCA, the ``zca`` context direction, the pasted goal, the Adam solve with
-its projection, and revert.
+ZCA, the ``zca`` context direction, the pasted goal (tight or whole-map),
+the Adam solve with its projection (or without, ``low_rank_insert=False``),
+one key of a request (``single_key``), and revert.
 
 The generator splits into context / target / rendering sub-pipelines by
 stage name; all three read the one params dict, so an edit is a new weight
@@ -48,6 +49,8 @@ class GanRewriter:
 
     def __init__(self, model, params, zds, layernum,
                  cachedir: Optional[str] = None,
+                 low_rank_insert: bool = True,
+                 tight_paste: bool = True,
                  key_method: str = "zca",
                  stats_batch_size: int = 10,
                  device=None):
@@ -62,6 +65,8 @@ class GanRewriter:
         self.model = model
         self.zds = zds
         self.cachedir = cachedir
+        self.low_rank_insert = low_rank_insert
+        self.tight_paste = tight_paste
         self.key_method = key_method
         self.stats_batch_size = stats_batch_size
 
@@ -222,8 +227,12 @@ class GanRewriter:
             unchanged_acts, obj_acts, geometry.centered_location(area),
             obj_area)
         full_target_acts = target_acts
-        source_acts, target_acts, source_bounds, target_bounds = (
-            geometry.crop_clip_to_bounds(source_acts, target_acts, bounds))
+        if self.tight_paste:
+            source_acts, target_acts, source_bounds, target_bounds = (
+                geometry.crop_clip_to_bounds(source_acts, target_acts,
+                                             bounds))
+        else:
+            source_bounds, target_bounds = None, None
         goal_in = self.merge_target_output(source_bag, source_acts,
                                            source_bounds)
         goal_out = self.merge_target_output(unchanged_bag, target_acts,
@@ -268,21 +277,26 @@ class GanRewriter:
     # -- the weight solve -------------------------------------------------------
     def insert(self, goal_in: DataBag, goal_out: DataBag, context,
                niter=2001, piter=10, lr=0.05) -> np.ndarray:
-        """Rank-constrained solve; commits the new weight into self.params
-        and returns the per-step losses."""
+        """Rank-constrained solve (unconstrained with low_rank_insert off);
+        commits the new weight into self.params and returns the per-step
+        losses."""
         w, losses = solve.insert_solve(
             self._window_fn, self.target_weight(), (goal_in, self.params),
-            goal_out["fmap"], context, niter=niter, piter=piter, lr=lr)
+            goal_out["fmap"], context, niter=niter, piter=piter, lr=lr,
+            low_rank_insert=self.low_rank_insert)
         self.set_target_weight(w)
         return losses
 
-    def apply_edit(self, request, rank=1, niter=2001, piter=10, lr=0.05
-                   ) -> np.ndarray:
+    def apply_edit(self, request, rank=1, niter=2001, piter=10, lr=0.05,
+                   single_key: int = -1) -> np.ndarray:
         """Apply a UI-format JSON edit request; returns the solve's
-        per-step losses."""
+        per-step losses.  With ``single_key >= 0`` only that key example
+        of the request shapes the context direction."""
         o_imgnum, o_mask = request["object"]
         p_imgnum, p_mask = request["paste"]
         key_examples = request.get("key", [(p_imgnum, p_mask)])
+        if single_key >= 0:
+            key_examples = [key_examples[single_key]]
         obj_acts, _, obj_area, _ = self.object_from_selection(o_imgnum,
                                                               o_mask)
         goal_in, goal_out, _, _ = self.paste_from_selection(

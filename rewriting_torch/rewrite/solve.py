@@ -59,13 +59,15 @@ def solve_spd(c_matrix: torch.Tensor, k) -> np.ndarray:
 
 def insert_solve(window_fn: Callable, weight0: torch.Tensor, goal_in,
                  goal_out: torch.Tensor, direction, niter: int = 2001,
-                 piter: int = 10, lr: float = 0.05
+                 piter: int = 10, lr: float = 0.05,
+                 low_rank_insert: bool = True
                  ) -> Tuple[torch.Tensor, np.ndarray]:
     """Minimize ``mean|goal_out - window_fn(w, goal_in)|`` by Adam from
-    ``weight0``, keeping the change in span(direction): after step 0,
-    every `piter` steps and the last step, w is reset to
-    ``ortho + projected_conv(w, direction)`` with ``ortho = weight0 -
-    projected_conv(weight0, direction)``.  Returns (weight, per-step
+    ``weight0``.  With ``low_rank_insert`` the change stays in
+    span(direction): after step 0, every `piter` steps and the last step,
+    w is reset to ``ortho + projected_conv(w, direction)`` with ``ortho =
+    weight0 - projected_conv(weight0, direction)``; without it the steps
+    are plain Adam (JAX package :113-116).  Returns (weight, per-step
     losses)."""
     direction = torch.as_tensor(direction, dtype=weight0.dtype,
                                 device=weight0.device)
@@ -81,7 +83,7 @@ def insert_solve(window_fn: Callable, weight0: torch.Tensor, goal_in,
             loss.backward()
             opt.step()
             losses.append(loss.detach())
-            if it % piter == 0 or it == niter - 1:
+            if low_rank_insert and (it % piter == 0 or it == niter - 1):
                 with torch.no_grad():
                     w.copy_(ortho + projected_conv(w, direction))
     losses = (torch.stack(losses).cpu().numpy() if losses

@@ -1,12 +1,16 @@
-"""Painted masks from base64 PNG data URLs, without PIL.
+"""Painted masks from base64 PNG data URLs, PNG writing, and image
+normalisations, without PIL.
 
-The port's own counterpart of the JAX package's ``utils/renormalize.py``
-``mask_from_url`` (:72-99), which decodes with PIL, converts to RGB,
-resizes with ``Image.BILINEAR`` and reads channel 0 over 255.  PIL is not
-a dependency of the port, so this module carries:
+The port's own counterpart of the JAX package's ``utils/renormalize.py``:
+``renormalize`` (:41-49) and ``mask_from_url`` (:72-99), which decodes with
+PIL, converts to RGB, resizes with ``Image.BILINEAR`` and reads channel 0
+over 255.  PIL is not a dependency of the port, so this module carries:
 
 - a PNG decoder (zlib + numpy): 8-bit greyscale, greyscale+alpha, RGB and
   RGBA, non-interlaced, filter types 0-4;
+- its counterpart, a PNG encoder (zlib + numpy) of 8-bit images with the
+  "up" row filter, as the JAX package's native encoder writes them
+  (``native/pngenc.cpp``);
 - the RGB conversion of PIL's ``convert("RGB")``: alpha is dropped, grey is
   copied to every channel, so channel 0 is the first sample of a pixel;
 - PIL's BILINEAR resize of 8-bit data: a triangle filter whose support
@@ -31,6 +35,54 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel (8-bit, no palette)
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PRECISION_BITS = 32 - 8 - 2
+
+# name -> (offset, scale) per channel: value = (x - offset) / scale; the
+# generator's zero-centred output and 8-bit pixels (the JAX package has
+# more, which no code of the port reads)
+OFFSET_SCALE = {
+    "zc": ([0.5, 0.5, 0.5], [0.5, 0.5, 0.5]),
+    "byte": ([0.0, 0.0, 0.0], [1 / 255.0, 1 / 255.0, 1 / 255.0]),
+}
+
+
+def renormalize(data, source: str = "zc", target: str = "zc") -> np.ndarray:
+    """Convert an (..., H, W, 3) array between normalisations; "byte" is
+    uint8 in [0, 255], cut by truncation."""
+    so, ss = (np.array(v, np.float32) for v in OFFSET_SCALE[source])
+    to, ts = (np.array(v, np.float32) for v in OFFSET_SCALE[target])
+    out = np.asarray(data, np.float32) * (ss / ts) + (so - to) / ts
+    if target == "byte":
+        out = np.clip(out, 0, 255).astype(np.uint8)
+    return out
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, level: int = 2) -> bytes:
+    """PNG bytes of an (H, W) or (H, W, 1|2|3|4) uint8 array: greyscale,
+    greyscale+alpha, RGB or RGBA; rows after the first "up"-filtered."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"encode_png takes uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, ch = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}.get(ch)
+    if ctype is None or h < 1 or w < 1:
+        raise ValueError(f"encode_png: cannot write shape {img.shape}")
+    rows = img.reshape(h, w * ch)
+    raw = np.empty((h, 1 + w * ch), np.uint8)
+    raw[0, 0] = 0
+    raw[0, 1:] = rows[0]
+    raw[1:, 0] = 2
+    raw[1:, 1:] = rows[1:] - rows[:-1]          # wraps mod 256
+    header = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
 
 
 def _paeth(a: int, b: int, c: int) -> int:

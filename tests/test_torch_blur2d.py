@@ -1,10 +1,12 @@
 """The port's FIR ops (rewriting_torch/ops) against the JAX package's.
 
 The CUDA kernel itself runs only on the card, where chip_smoke.py holds it
-against its plain version; here the plain version ``blur2d_reference`` is
-held against the Pallas kernels it stands for, run as tests/test_pallas.py
-runs them on the CPU (interpret mode), and against the XLA ``upfirdn2d``.
-Inputs are NHWC numpy arrays from a seed, transposed to NCHW for the port.
+and its backward against their plain versions; here the plain version
+``blur2d_reference`` is held against the Pallas kernels it stands for, run
+as tests/test_pallas.py runs them on the CPU (interpret mode), and against
+the XLA ``upfirdn2d``; its gradient against ``jax.grad``; and the adjoint
+formula the CUDA backward launches against autograd.  Inputs are NHWC
+numpy arrays from a seed, transposed to NCHW for the port.
 """
 
 import os
@@ -22,7 +24,8 @@ from rewriting_tpu.ops.upfirdn2d import (blur2d as jax_blur2d,
                                          make_kernel as jax_make_kernel,
                                          upsample2d as jax_upsample2d)
 from rewriting_torch.ops import _build, make_kernel, upfirdn2d, upsample2d
-from rewriting_torch.ops.blur2d import blur2d_cuda, blur2d_reference
+from rewriting_torch.ops.blur2d import (adjoint, blur2d_backward_reference,
+                                        blur2d_cuda, blur2d_reference)
 from rewriting_torch.ops.upfirdn2d import blur2d
 
 torch.set_num_threads(1)
@@ -220,3 +223,89 @@ def test_build_is_keyed_on_the_source(tmp_path, monkeypatch):
         _build.build("k")
     assert not [p for p in os.listdir(tmp_path / "_build")
                 if p.endswith(".tmp")]
+
+
+# ---------------------------------------------------------------------------
+# The blur's gradient: the adjoint formula the CUDA backward launches
+# ---------------------------------------------------------------------------
+
+# (NCHW shape, taps, gain, pad): the model's (pad (1, 1) after an up-conv,
+# gain 4), pad (2, 1), a crop, a 3-tap FIR and non-square maps
+GRAD_CASES = [((2, 8, 17, 17), (1, 3, 3, 1), 4.0, (1, 1)),
+              ((1, 4, 12, 20), (1, 3, 3, 1), 4.0, (2, 1)),
+              ((1, 3, 11, 9), (1, 2, 1), 1.0, (1, 1)),
+              ((2, 2, 10, 13), (1, 2, 3, 1), 1.0, (-1, 3)),
+              ((1, 5, 9, 9), (1, 3, 3, 1), 1.0, (0, 0))]
+GRAD_IDS = [f"{s[2]}x{s[3]}-k{len(t)}-pad{p[0]}{p[1]}"
+            for s, t, _, p in GRAD_CASES]
+
+
+def _grad_case(shape, taps, gain, pad):
+    rng = np.random.RandomState(sum(shape) + len(taps))
+    x = rng.randn(*shape).astype(np.float32)
+    kern = np.asarray(jax_make_kernel(list(taps))) * gain
+    kflip = np.ascontiguousarray(np.flip(kern, (0, 1)))
+    out = blur2d_reference(torch.from_numpy(x), kflip, pad)
+    g = rng.randn(*out.shape).astype(np.float32)
+    return x, kern, kflip, g
+
+
+@pytest.mark.parametrize("shape,taps,gain,pad", GRAD_CASES, ids=GRAD_IDS)
+def test_blur_gradient_matches_jax_grad(shape, taps, gain, pad):
+    """The gradient of the port's blur (autograd through the plain version)
+    against jax.grad of the JAX upfirdn2d blur: 1e-5 abs."""
+    import jax
+    x, kern, kflip, g = _grad_case(shape, taps, gain, pad)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (blur2d_reference(xt, kflip, pad) * torch.from_numpy(g)).sum().backward()
+    g_nhwc = jnp.asarray(g.transpose(0, 2, 3, 1))
+    want = jax.grad(lambda v: jnp.sum(jax_upfirdn2d(
+        v, jnp.asarray(kern), up=1, down=1, pad=pad) * g_nhwc))(
+            jnp.asarray(x.transpose(0, 2, 3, 1)))
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("shape,taps,gain,pad", GRAD_CASES, ids=GRAD_IDS)
+def test_adjoint_formula_matches_autograd(shape, taps, gain, pad):
+    """The formula the CUDA backward launches -- the blur of the output
+    gradient with the rotated taps and pads (k-1-p0, k-1-p1) -- through
+    the plain version, against autograd of the plain version: the input's
+    shape, 1e-5 abs."""
+    x, _, kflip, g = _grad_case(shape, taps, gain, pad)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    blur2d_reference(xt, kflip, pad).backward(torch.from_numpy(g))
+    got = blur2d_backward_reference(torch.from_numpy(g), kflip, pad)
+    assert got.shape == xt.shape
+    np.testing.assert_allclose(got.numpy(), xt.grad.numpy(), atol=1e-5,
+                               rtol=0)
+    taps_rot, apad = adjoint(kflip, pad)
+    k = kflip.shape[0]
+    np.testing.assert_array_equal(taps_rot, kflip[::-1, ::-1])
+    assert apad == (k - 1 - pad[0], k - 1 - pad[1])
+
+
+def test_blur_function_launches_forward_and_adjoint(monkeypatch):
+    """Blur2dFunction's plumbing, with the launch replaced by the plain
+    version on the CPU: the forward and the backward each make one launch,
+    counted apart, the backward with the adjoint's taps and pads; the
+    gradient equals autograd's."""
+    from rewriting_torch.ops import blur2d as kb
+    seen = []
+
+    def fake_launch(x, kflip, pad):
+        seen.append((np.array(kflip), tuple(pad)))
+        return blur2d_reference(x, kflip, pad)
+    monkeypatch.setattr(kb, "_launch", fake_launch)
+    monkeypatch.setattr(kb, "launches", 0)
+    monkeypatch.setattr(kb, "backward_launches", 0)
+    x, _, kflip, g = _grad_case(*GRAD_CASES[1])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    kb.Blur2dFunction.apply(xt, kflip, (2, 1)).backward(torch.from_numpy(g))
+    assert (kb.launches, kb.backward_launches) == (1, 1)
+    np.testing.assert_array_equal(seen[1][0], kflip[::-1, ::-1])
+    assert seen[0][1] == (2, 1) and seen[1][1] == (1, 2)
+    x2 = torch.from_numpy(x).requires_grad_(True)
+    blur2d_reference(x2, kflip, (2, 1)).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), x2.grad.numpy(), atol=1e-5,
+                               rtol=0)

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax, PIL nor the JAX package,
-and its entry points never fall back to the CPU silently."""
+"""The port stands alone: no module of it -- the sampling slice's
+included -- imports jax, PIL or the JAX package, and its entry points never
+fall back to the CPU silently."""
 
 import os
 import pathlib
@@ -32,15 +33,35 @@ for name in names:
 loaded = sorted(n for n, m in sys.modules.items()
                 if m is not None and n.split(".")[0] in {BLOCKED!r})
 print(len(names), loaded)
+print(" ".join(names))
 """
+
+# the modules of the sampling slice, which the walk must reach
+SLICE2 = ("ops.upconv_blur", "ops.upsample2x", "metrics.sample",
+          "metrics.sample_edited", "metrics.load_mask", "utils.imgsave",
+          "utils.workerpool", "utils.pidfile", "utils.pbar")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, loaded = proc.stdout.split(" ", 1)
-    assert int(count) >= 20 and loaded.strip() == "[]"
+    first, names = proc.stdout.splitlines()
+    count, loaded = first.split(" ", 1)
+    assert int(count) >= 29 and loaded.strip() == "[]"
+    for name in SLICE2:
+        assert f"rewriting_torch.{name}" in names.split(), name
+
+
+def test_package_data_ships_the_sources_and_the_gallery():
+    """The CUDA sources and the lightbox page the samplers copy are in the
+    package, and pyproject.toml ships them."""
+    text = (ROOT / "pyproject.toml").read_text()
+    for pattern in ("csrc/*.cu", "utils/lightbox.html"):
+        assert pattern in text
+    for name in ("blur2d", "upconv_blur", "upsample2x"):
+        assert (PORT / "csrc" / f"{name}.cu").is_file()
+    assert (PORT / "utils" / "lightbox.html").is_file()
 
 
 def test_no_source_names_the_jax_package():

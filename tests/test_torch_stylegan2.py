@@ -1,9 +1,12 @@
-"""The port's seq StyleGAN2 against the JAX package's, on one set of
-weights carried across with ``params_from_jax``.
+"""The port's StyleGAN2 (the seq pipeline and ``pipeline_fast``) against
+the JAX package's, on one set of weights carried across with
+``params_from_jax``.
 
 Tolerances: fp32 on both sides, atol 1e-4: the convolutions sum in a
 different order in XLA and in PyTorch (measured maximum of the forward
-difference: 6.7e-6).
+difference: 6.7e-6).  ``pipeline_fast`` against the JAX one (K1 in
+interpret mode) and against the port's seq pipeline: 1e-4 of the largest
+output, the limit of tests/test_stylegan2.py:343.
 """
 
 import jax
@@ -15,9 +18,11 @@ import torch
 from rewriting_tpu.core import DataBag as JaxBag
 from rewriting_tpu.models.stylegan2 import (
     SeqStyleGAN2 as JaxSeqStyleGAN2, params_from_state_dict)
+from rewriting_tpu.ops import pallas_upconv as jax_upconv
 from rewriting_torch.convert import params_from_jax, params_to_numpy
 from rewriting_torch.core import DataBag
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2
+from rewriting_torch.ops import upconv_blur
 
 torch.set_num_threads(1)
 
@@ -83,7 +88,7 @@ def test_init_params_distributions(pair):
 def test_forward_matches_jax(pair):
     jm, jp, tm, tp, z = pair
     want = np.asarray(jm(jp, jnp.asarray(z), fast=False))
-    got = _nchw_to_nhwc(tm(tp, z))
+    got = tm(tp, z, fast=False).numpy()
     assert got.shape == (3, SIZE, SIZE, 3)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
@@ -161,7 +166,7 @@ def test_truncation_matches_jax(pair):
     avg = np.random.RandomState(2).randn(STYLE_DIM).astype(np.float32)
     jp["latents"] = {"latent_avg": jnp.asarray(avg)}
     want = np.asarray(jt(jp, jnp.asarray(z), fast=False))
-    got = _nchw_to_nhwc(tt(params_from_jax(tt, _np_tree(jp)), z))
+    got = tt(params_from_jax(tt, _np_tree(jp)), z, fast=False).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
@@ -188,7 +193,7 @@ def test_golden(golden_port, key):
     tm, tp, want = golden_port
     z = want["z"]
     if key == "out":
-        got = tm(tp, z).numpy()
+        got = tm(tp, z, fast=False).numpy().transpose(0, 3, 1, 2)
     else:
         first = "layer3.sconv.mconv.dconv"
         with torch.no_grad():
@@ -201,3 +206,125 @@ def test_golden(golden_port, key):
         assert isinstance(bag, DataBag)
         got = bag["fmap"].numpy()
     np.testing.assert_allclose(got, want[key], atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# pipeline_fast (K1) and the NHWC __call__
+# ---------------------------------------------------------------------------
+
+def _live_epilogue(tree, seed):
+    """The tree with random noise weights and activate biases, so the
+    fused epilogue's noise and bias terms are not zero."""
+    rng = np.random.RandomState(seed)
+    tree = dict(tree)
+    for name in list(tree):
+        if name.endswith(".noise"):
+            tree[name] = {"weight": rng.randn(1).astype(np.float32)}
+        elif name.endswith(".activate"):
+            n = np.asarray(tree[name]["bias"]).shape[0]
+            tree[name] = {"bias": rng.randn(n).astype(np.float32) * 0.1}
+    return tree
+
+
+def _fast_pair(blur_kernel):
+    jm = JaxSeqStyleGAN2(SIZE, style_dim=STYLE_DIM, n_mlp=N_MLP,
+                         blur_kernel=blur_kernel)
+    jp = _live_epilogue(_np_tree(jm.init_params(jax.random.PRNGKey(4))), 9)
+    tm = SeqStyleGAN2(SIZE, style_dim=STYLE_DIM, n_mlp=N_MLP,
+                      blur_kernel=blur_kernel, device="cpu")
+    return jm, jp, tm, params_from_jax(tm, jp)
+
+
+def _jax_fast(jm, jp, z, epilogue=True):
+    """The JAX pipeline_fast with K1 on at every resolution (interpret mode
+    on the CPU), the gates restored after (tests/test_stylegan2.py:333)."""
+    jax_upconv.set_fused_upconv("on", min_res=0)
+    jax_upconv.set_fused_epilogue(epilogue)
+    try:
+        return np.asarray(jm(jax.tree_util.tree_map(jnp.asarray, jp),
+                             jnp.asarray(z), fast=True))
+    finally:
+        jax_upconv.set_fused_upconv("off", min_res=256)
+        jax_upconv.set_fused_epilogue(True)
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("epilogue", [True, False],
+                         ids=["epilogue", "no-epilogue"])
+def test_pipeline_fast_matches_jax_and_seq(epilogue):
+    """The port's pipeline_fast (K1's plain version on the CPU) against the
+    JAX pipeline_fast with K1 forced on, and against the port's seq
+    pipeline: 1e-4 of max |output|."""
+    jm, jp, tm, tp = _fast_pair((1, 3, 3, 1))
+    z = np.random.RandomState(6).randn(2, STYLE_DIM).astype(np.float32)
+    want = _jax_fast(jm, jp, z, epilogue)
+    upconv_blur.set_fused_epilogue(epilogue)
+    try:
+        got = tm(tp, z).numpy()
+    finally:
+        upconv_blur.set_fused_epilogue(True)
+    seq = tm(tp, z, fast=False).numpy()
+    assert got.shape == (2, SIZE, SIZE, 3)
+    assert _rel(got, want) < 1e-4
+    assert 0.0 < _rel(got, seq) < 1e-4   # 0.0: the fused stages never ran
+
+
+@pytest.mark.parametrize("blur_kernel", [(1, 2, 3, 1), (1, 2, 1)],
+                         ids=["asymmetric-4tap", "3tap"])
+def test_pipeline_fast_other_blur_kernels(blur_kernel):
+    """An asymmetric 4-tap FIR takes K1 (its taps flipped the right way);
+    a 3-tap FIR installs no fused stage, so pipeline_fast is the seq
+    pipeline exactly.  Both against the JAX package: 1e-4 of max."""
+    jm, jp, tm, tp = _fast_pair(blur_kernel)
+    z = np.random.RandomState(7).randn(2, STYLE_DIM).astype(np.float32)
+    want = _jax_fast(jm, jp, z)
+    got = tm(tp, z).numpy()
+    seq = tm(tp, z, fast=False).numpy()
+    assert _rel(got, want) < 1e-4
+    if len(blur_kernel) == 4:
+        assert 0.0 < _rel(got, seq) < 1e-4
+    else:
+        np.testing.assert_array_equal(got, seq)
+        assert all(s.fn is f.fn for s, f in zip(tm.pipeline.stages,
+                                                  tm.pipeline_fast.stages))
+
+
+def test_call_returns_nhwc(pair):
+    """__call__ returns (B, H, W, 3), the JAX layout, on both pipelines:
+    the seq one is the NCHW pipeline output transposed."""
+    _, _, tm, tp, z = pair
+    with torch.no_grad():
+        nchw = tm.pipeline(tp, tm.make_bag(z))["output"]
+    got = tm(tp, z, fast=False)
+    assert tuple(got.shape) == (3, SIZE, SIZE, 3) and got.is_contiguous()
+    assert torch.equal(got, nchw.permute(0, 2, 3, 1))
+    assert tuple(tm(tp, z).shape) == (3, SIZE, SIZE, 3)
+
+
+def test_fused_gate_modes(pair):
+    """"off" runs the seq stages inside pipeline_fast (bit for bit);
+    unknown modes and the unported subpixel pipeline raise."""
+    _, _, tm, tp, z = pair
+    assert upconv_blur.fused_upconv_active()          # "auto" by default
+    upconv_blur.set_fused_upconv("off")
+    try:
+        assert not upconv_blur.fused_epilogue_active()
+        assert torch.equal(tm(tp, z), tm(tp, z, fast=False))
+    finally:
+        upconv_blur.set_fused_upconv("auto")
+    with pytest.raises(ValueError):
+        upconv_blur.set_fused_upconv("sometimes")
+    with pytest.raises(NotImplementedError):
+        tm(tp, z, fused=True)
+
+
+def test_fast_pipeline_stage_names_match_jax(pair):
+    jm, _, tm, _, _ = pair
+    assert tm.pipeline_fast.stage_names() == \
+        jm.pipeline_fast.stage_names() == tm.pipeline.stage_names()
+    fused = [s.name for s in tm.pipeline_fast.stages
+             if getattr(s.fn, "_full_params", False)]
+    assert fused == [f"layer{i}.sconv.mconv.dconv" for i in (3, 5)]
