@@ -79,7 +79,9 @@ def phase(name: str, t0: float) -> None:
 
 
 def time_ms(torch, fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median over `runs` of one call's device time, by CUDA events."""
+    """Median over `runs` of one call's stream span: the time between CUDA
+    events recorded before and after it, gaps while the host launches
+    included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -118,12 +120,15 @@ def blur_bound_ms(x_shape, y_shape, k: int):
 
 def upconv_bound_ms(b, i, h, o):
     """K1 with its epilogue: x, the weights, demod, noise and bias read
-    once, the output written once; 9 MACs per (input pixel, I, O), 16 per
-    output for the blur and 5 operations of epilogue."""
+    once, the output written once.  Operations: 9 MACs per (input pixel,
+    I, O) for the transposed conv; 8 MACs per output for the blur, whose
+    taps are always an outer product (``blur_taps``) and so separable; and
+    5 per output for the epilogue (the demod-noise FMA, the bias add, the
+    leaky slope and the sqrt(2) gain; the sign select is not counted)."""
     outputs = b * o * 4 * h * h
     nbytes = 4.0 * (b * i * h * h + 9 * i * o + b * o + 4 * h * h + o
                     + outputs)
-    flops = 2.0 * 9 * i * o * h * h * b + (2.0 * 16 + 5) * outputs
+    flops = 2.0 * 9 * i * o * h * h * b + (2.0 * 8 + 5) * outputs
     return bound_ms(nbytes, flops)
 
 
@@ -617,11 +622,11 @@ def main() -> int:
             raise AssertionError(f"pipeline_fast vs seq: {rel}, "
                                  f"{fast_launches} K1 launches")
         del fast, seq
-        for mode in ("auto", "off"):   # a batch's device time, both paths
+        for mode in ("auto", "off"):   # a batch's stream span, both paths
             kup.set_fused_upconv(mode)
             ms = time_ms(torch, lambda: model(params, z16), runs=10)
             print(f"church-256 forward at batch 16, K1 {mode}: {ms:.3f} ms "
-                  f"of device time = {16e3 / ms:.2f} images/s on the card")
+                  f"stream span (CUDA events) = {16e3 / ms:.2f} images/s")
         for mode in ("auto", "off"):   # warm both paths at batch 16
             kup.set_fused_upconv(mode)
             check_sampling(model, params, os.path.join(tmp.name,

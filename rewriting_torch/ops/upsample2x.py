@@ -38,9 +38,10 @@ MAX_TAPS = 8
 launches = 0
 
 
-def is_2x(h: int, k: int, pad: Tuple[int, int]) -> bool:
-    """True if zero-insertion, ``pad`` and a k-tap FIR give exactly 2h."""
-    return 2 * h + pad[0] + pad[1] - k + 1 == 2 * h
+def is_2x(k: int, pad: Tuple[int, int]) -> bool:
+    """True if zero-insertion, ``pad`` and a k-tap FIR give exactly twice
+    the input's size (2h + p0 + p1 - k + 1 == 2h, whatever h)."""
+    return pad[0] + pad[1] == k - 1
 
 
 def phase_offsets(k: int, pad0: int) -> Dict[int, List[Tuple[int, int]]]:
@@ -58,7 +59,7 @@ def upsample2x_reference(x: torch.Tensor, kflip, pad: Tuple[int, int]
     kflip = np.asarray(kflip, np.float32)
     k = kflip.shape[0]
     n, c, h, w = x.shape
-    if not is_2x(h, k, pad) or not is_2x(w, k, pad):
+    if not is_2x(k, pad):
         raise ValueError(f"upsample2x: pad {pad} with {k} taps does not give "
                          "a 2x output")
     offs = phase_offsets(k, pad[0])
@@ -108,7 +109,7 @@ def upsample2x_cuda(x: torch.Tensor, kflip, pad: Tuple[int, int]
         raise ValueError(f"upsample2x_cuda takes a square kernel of at most "
                          f"{MAX_TAPS} taps, got {taps.shape}")
     n, c, h, w = x.shape
-    if not is_2x(h, k, pad):
+    if not is_2x(k, pad):
         raise ValueError(f"upsample2x_cuda: pad {pad} with {k} taps does not "
                          "give a 2x output")
     y = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)

@@ -1,15 +1,19 @@
-"""Where the PyTorch port's church-256 edit loop spends its time, on one
-CUDA device.
+"""Where the PyTorch port's church-256 edit loop and sampler spend their
+time, on one CUDA device.
 
-Builds the church-256 model (random weights, seed 0) and the layer-8
-rewriter, builds the dome2tree goal and context direction, then times the
-first ``apply_edit`` of the process (profiled, ranked by host time), the
-same 2001-step solve again and the solve per step, and profiles a window
-of steps and a batch-8 render with ``torch.profiler``.  Prints the card, one table per profiled part
-(top operators by device time) and one JSON line per part with the wall
-time, the summed device kernel time and the device busy share.
+Builds the church-256 model (random weights, seed 0).  The edit part
+builds the layer-8 rewriter, the dome2tree goal and context direction,
+then times the first ``apply_edit`` of the process (profiled, ranked by
+host time), the same 2001-step solve again and the solve per step, and
+profiles a window of steps and a batch-8 render with ``torch.profiler``.
+The sample part profiles ``sample_clean`` writing 64 images at batch 16,
+with the fused up-conv on ("auto") and off, each after a warm run.
+Prints the card, one table per profiled part (top operators by device
+time) and one JSON line per part with the wall time, the summed device
+kernel time and the device busy share.
 
-    python3 scripts/profile_torch_edit.py [--steps 200] [--window 20]
+    python3 scripts/profile_torch_edit.py [--parts edit,sample]
+        [--steps 200] [--window 20] [--images 64]
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,7 +33,9 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from rewriting_torch.metrics.sample import sample_clean  # noqa: E402
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2  # noqa: E402
+from rewriting_torch.ops import upconv_blur  # noqa: E402
 from rewriting_torch.rewrite import SeqStyleGanRewriter, solve  # noqa: E402
 from rewriting_torch.utils.zdataset import z_dataset_for_model  # noqa: E402
 
@@ -69,23 +76,36 @@ def report(name, prof, wall_s, extra=None, by_host=False):
     print(json.dumps(line))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=200,
-                    help="solve steps of the per-step time")
-    ap.add_argument("--window", type=int, default=20,
-                    help="solve steps under the profiler")
-    a = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_edit: no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print("card:", smi.stdout.strip())
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return time.time() - t0
 
-    model = SeqStyleGAN2(256, style_dim=512, n_mlp=8, channel_multiplier=2)
-    params = model.init_params(seed=0)
+
+def profile_sample(model, params, images: int) -> None:
+    """``sample_clean`` of `images` church-256 PNGs at batch 16 under the
+    profiler, the fused up-conv on and off, each after a warm run."""
+    with tempfile.TemporaryDirectory(prefix="profile_sample_") as tmp:
+        for mode in ("auto", "off"):
+            upconv_blur.set_fused_upconv(mode)
+            sample_clean(model, params, os.path.join(tmp, f"warm_{mode}"),
+                         n=16, batch_size=16)
+            out = os.path.join(tmp, f"clean_{mode}")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = timed(lambda: sample_clean(model, params, out,
+                                                  n=images, batch_size=16))
+            report(f"sample_clean {images}, fused up-conv {mode}", prof,
+                   wall, {"images": images,
+                          "images_per_s": images / wall})
+        upconv_blur.set_fused_upconv("auto")
+
+
+def profile_edit(model, params, steps: int, window: int) -> None:
+    """The layer-8 dome2tree edit: the first apply_edit, the solve warm
+    and per step, a window of steps and a batch-8 render."""
     rw = SeqStyleGanRewriter(model, params, z_dataset_for_model(model, 1000),
                              layernum=8, key_method="zca")
     with open(MASK) as f:
@@ -102,13 +122,6 @@ def main() -> int:
                                   (goal_in, rw.params), goal_out["fmap"],
                                   direction, niter=steps, piter=10, lr=0.05)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        return time.time() - t0
-
     # the first apply_edit in the process (as chip_smoke.py times it, here
     # under the profiler, ranked by host time), then the same 2001-step
     # solve warm, then a shorter one per step
@@ -119,18 +132,18 @@ def main() -> int:
     report("first apply_edit", prof, edit_s, by_host=True)
     rw.revert()
     solve_s = timed(lambda: run(2001))
-    per_step = timed(lambda: run(a.steps)) / a.steps
+    per_step = timed(lambda: run(steps)) / steps
     print(json.dumps({"part": "solve", "apply_edit_first_profiled_s": edit_s,
-                      "solve_2001_warm_s": solve_s, "steps": a.steps,
+                      "solve_2001_warm_s": solve_s, "steps": steps,
                       "ms_per_step": per_step * 1e3}))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run(a.window)
+        run(window)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    report("solve window", prof, wall, {"steps": a.window})
+    report("solve window", prof, wall, {"steps": window})
 
     z8 = rw.zds.zs[:8]
     rw.sample_image_from_latent(z8)
@@ -142,6 +155,36 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.time() - t0
     report("render 8", prof, wall)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="edit,sample",
+                    help="comma-separated parts to profile: edit, sample")
+    ap.add_argument("--steps", type=int, default=200,
+                    help="solve steps of the per-step time")
+    ap.add_argument("--window", type=int, default=20,
+                    help="solve steps under the profiler")
+    ap.add_argument("--images", type=int, default=64,
+                    help="images of each profiled sample_clean")
+    a = ap.parse_args()
+    parts = set(a.parts.split(","))
+    if not parts <= {"edit", "sample"}:
+        ap.error(f"unknown parts {sorted(parts - {'edit', 'sample'})}")
+    if not torch.cuda.is_available():
+        print("profile_torch_edit: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print("card:", smi.stdout.strip())
+
+    model = SeqStyleGAN2(256, style_dim=512, n_mlp=8, channel_multiplier=2)
+    params = model.init_params(seed=0)
+    if "sample" in parts:
+        profile_sample(model, params, a.images)
+    if "edit" in parts:
+        profile_edit(model, params, a.steps, a.window)
     return 0
 
 
