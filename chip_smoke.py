@@ -16,9 +16,10 @@ set to 0 just before it and read just after:
   ``dome2tree`` edit request (rank 1, 2001 Adam steps), edited renders,
   revert (the FIR blur K2);
 - the 2x upsample op ``upsample2d`` on wide maps (K3);
-- church-256 sampling through ``sample_clean`` and ``pipeline_fast`` (the
-  fused up-conv + blur K1), with and without K1, and the port's PNG files
-  decoded against a direct render;
+- church-256 sampling through ``sample_clean`` and ``pipeline_fast`` in
+  the three modes of K1's gate (off, the default; on, which takes the
+  256-pixel layer; on with ``min_res=0``, all six up-conv layers), and the
+  port's PNG files decoded against a direct render;
 - ``sample_edited``: the dome2tree edit, then 32 samples of the edited
   model;
 - an edit at the upsampling layer 7, whose solve runs K2's backward.
@@ -46,9 +47,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MASKS = os.path.join(ROOT, "notebooks", "masks", "stylegan")
 MASK = os.path.join(MASKS, "church", "dome2tree.json")
 
-# H100 SXM data sheet: device memory rate and fp32 (non-tensor-core) peak
+# H100 SXM data sheet: device memory rate, fp32 (non-tensor-core) peak and
+# the dense TF32 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 BLUR_TOL = 1e-5        # K2 and its backward vs plain version, absolute
 UPCONV_RTOL = 1e-5     # K1 vs plain, of max |plain| (tests/test_pallas.py)
@@ -118,18 +121,55 @@ def blur_bound_ms(x_shape, y_shape, k: int):
     return bound_ms(4.0 * (nx + y_numel), 2.0 * k * k * y_numel)
 
 
-def upconv_bound_ms(b, i, h, o):
-    """K1 with its epilogue: x, the weights, demod, noise and bias read
-    once, the output written once.  Operations: 9 MACs per (input pixel,
-    I, O) for the transposed conv; 8 MACs per output for the blur, whose
-    taps are always an outer product (``blur_taps``) and so separable; and
-    5 per output for the epilogue (the demod-noise FMA, the bias add, the
-    leaky slope and the sqrt(2) gain; the sign select is not counted)."""
+def _upconv_counts(b, i, h, o):
+    """K1 with its epilogue: (bytes, MACs of the conv, outputs).  x, the
+    weights, demod, noise and bias are read once, the output written once;
+    the conv does 9 MACs per (input pixel, I, O)."""
     outputs = b * o * 4 * h * h
     nbytes = 4.0 * (b * i * h * h + 9 * i * o + b * o + 4 * h * h + o
                     + outputs)
-    flops = 2.0 * 9 * i * o * h * h * b + (2.0 * 8 + 5) * outputs
-    return bound_ms(nbytes, flops)
+    return nbytes, 9.0 * i * o * h * h * b, outputs
+
+
+def upconv_bound_ms(b, i, h, o):
+    """K1's least time at the parity tier: the conv's products on the
+    tensor cores as 3xTF32 (3 * 2 * MACs at the TF32 peak), plus the blur
+    (8 MACs an output: its taps are always an outer product, so it is
+    separable) and the epilogue (5 operations an output: the demod-noise
+    FMA, the bias add, the leaky slope and the sqrt(2) gain) at the fp32
+    peak; or the bytes, whichever is larger."""
+    nbytes, macs, outputs = _upconv_counts(b, i, h, o)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (3 * 2.0 * macs / TF32_FLOPS_PER_S
+              + (2.0 * 8 + 5) * outputs / FP32_FLOPS_PER_S) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def upconv_bound_fp32_ms(b, i, h, o):
+    """The same work with every operation at the fp32 peak (the bound of
+    the first, FFMA version of K1)."""
+    nbytes, macs, outputs = _upconv_counts(b, i, h, o)
+    return bound_ms(nbytes, 2.0 * macs + (2.0 * 8 + 5) * outputs)
+
+
+def library_up_kernel(torch, wf, kf):
+    """(I, O, 6, 6): the transposed conv's weight ``flip(wf)`` (I, O, 3, 3)
+    fully convolved with the blur ``outer(kf, kf)`` in FIR orientation, so
+    that one ``conv_transpose2d`` with stride 2 and padding 2 computes K1's
+    function before the epilogue: a yardstick, used nowhere in the port."""
+    w = torch.flip(wf, (2, 3)).transpose(0, 1)
+    k2 = torch.outer(torch.tensor(kf), torch.tensor(kf))
+    w6 = w.new_zeros(w.shape[:2] + (6, 6))
+    for a in range(4):
+        for c in range(4):
+            w6[:, :, a:a + 3, c:c + 3] += w * float(k2[a, c])
+    return w6.contiguous()
+
+
+def library_upconv(torch, x, w6):
+    """The one-call yardstick: (B, O, 2H, 2W)."""
+    return torch.nn.functional.conv_transpose2d(x, w6, stride=2, padding=2)
 
 
 def composite_up_kernel(torch, wf, kf):
@@ -419,6 +459,9 @@ def main() -> int:
 
     # 6. K1 vs plain version -------------------------------------------------------
     t0 = time.time()
+    for line in _build.build_logs.get("upconv_blur", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print("K1 ptxas -v:", line.strip())
     kf_std = tuple(float(v) for v in np.asarray(BLUR_TAPS) / 8.0 * 2.0)
     kf_asym = (0.1, 0.5, 0.9, 0.5)
     max_err = max_rel = 0.0
@@ -440,9 +483,8 @@ def main() -> int:
             variants = [("no epilogue", kf_std, ()),
                         ("epilogue, broadcast noise", kf_std, epi),
                         ("epilogue, per-batch noise", kf_std,
-                         (demod, noise_b, bias))]
-            if h in (4, 128):
-                variants.append(("asymmetric kf, epilogue", kf_asym, epi))
+                         (demod, noise_b, bias)),
+                        ("asymmetric kf, epilogue", kf_asym, epi)]
             for label, kf, extra in variants:
                 got = kup.upconv_blur_cuda(x, wf, kf, *extra)
                 want = kup.upconv_blur_reference(x, wf, kf, *extra)
@@ -457,13 +499,21 @@ def main() -> int:
                         not rel <= UPCONV_RTOL:
                     raise AssertionError(f"upconv_blur differs from its "
                                          f"plain version by {rel}")
-            # timings, with the epilogue as the sampling path runs it
-            comp = composite_up_kernel(torch, wf, kf_std)
-            yard_b = composite_upconv(torch, x, comp)
+            if b == 1:
+                continue
+            # timings at batch 16, with the epilogue as the sampling path
+            # runs it; the yardsticks are held to the plain version first
             ref = kup.upconv_blur_reference(x, wf, kf_std)
-            yrel = float((yard_b - ref).abs().max() / ref.abs().max())
-            if not yrel <= UPCONV_RTOL:
-                raise AssertionError(f"composite yardstick differs by {yrel}")
+            comp = composite_up_kernel(torch, wf, kf_std)
+            w6 = library_up_kernel(torch, wf, kf_std)
+            for name, yard in (("composite", composite_upconv(torch, x,
+                                                              comp)),
+                               ("library", library_upconv(torch, x, w6))):
+                yrel = float((yard - ref).abs().max() / ref.abs().max())
+                if not yrel <= UPCONV_RTOL:
+                    raise AssertionError(f"{name} yardstick differs by "
+                                         f"{yrel}")
+            del yard, ref
             w_t = torch.flip(wf, (2, 3)).transpose(0, 1).contiguous()
 
             def seq_stages():
@@ -475,19 +525,28 @@ def main() -> int:
                 x, wf, kf_std, *epi))
             p_ms = time_ms(torch, lambda: kup.upconv_blur_reference(
                 x, wf, kf_std, *epi))
-            a_ms = time_ms(torch, seq_stages)
-            b_ms = time_ms(torch, lambda: kup._epilogue(
+            s_ms = time_ms(torch, seq_stages)
+            c_ms = time_ms(torch, lambda: kup._epilogue(
                 composite_upconv(torch, x, comp), *epi))
+            l_ms = time_ms(torch, lambda: kup._epilogue(
+                library_upconv(torch, x, w6), *epi))
             bound, by = upconv_bound_ms(b, i, h, o)
-            row = {"shape": [b, i, h, h, o], "ms": k_ms, "plain_ms": p_ms,
-                   "seq_ms": a_ms, "library_ms": b_ms, "bound_ms": bound,
-                   "bound_by": by}
+            bound32, _ = upconv_bound_fp32_ms(b, i, h, o)
+            row = {"shape": [b, i, h, h, o], "tile": list(kup._plan(
+                       b, i, h, h, o)), "ms": k_ms, "plain_ms": p_ms,
+                   "seq_ms": s_ms, "composite_ms": c_ms, "library_ms": l_ms,
+                   "bound_ms": bound, "bound_by": by,
+                   "bound_fp32_ms": bound32}
             up_rows.append(row)
             print(f"upconv_blur time {(b, i, h, h)} -> {o}: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, seq stages (cuDNN "
-                  f"convT + K2 + epilogue) {a_ms:.4f} ms, composite conv "
-                  f"{b_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-            del x, wf, comp, yard_b, ref, noise_b
+                  f"{k_ms:.4f} ms ({k_ms / bound:.2f}x its 3xTF32 bound "
+                  f"{bound:.4f} ms, {by}; fp32 bound {bound32:.4f} ms), "
+                  f"plain {p_ms:.4f} ms, seq stages (cuDNN convT + K2 + "
+                  f"epilogue) {s_ms:.4f} ms, composite conv {c_ms:.4f} ms, "
+                  f"library conv_transpose2d 6x6 {l_ms:.4f} ms; tile "
+                  f"{row['tile']}")
+            del x, wf, comp, w6, noise_b
+    print(json.dumps({"upconv_rows": up_rows}))
     head = up_rows[-1]
     kernels["upconv_blur"] = {
         "name": "upconv_blur", "route": "cuda",
@@ -496,8 +555,10 @@ def main() -> int:
                     "(upconv_blur_pallas :166)",
         "launches": None, "max_abs_err": max_err, "max_rel_err": max_rel,
         "at": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "seq_ms": head["seq_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_fp32_ms": head["bound_fp32_ms"],
+        "library_ms": head["library_ms"], "seq_ms": head["seq_ms"],
+        "composite_ms": head["composite_ms"]}
     phase("6 K1 vs plain version", t0)
 
     # 7. K2's backward vs autograd of the plain version -----------------------------
@@ -606,53 +667,63 @@ def main() -> int:
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
-        # 9. sampling: pipeline_fast (K1) vs seq, then sample_clean -------------
+        # 9. sampling: pipeline_fast (K1) vs seq, then sample_clean in the
+        # three gate modes ---------------------------------------------------
         t0 = time.time()
         z16 = standard_z_sample(16, 512, seed=2)
+        kup.set_fused_upconv("on", min_res=0)
         kup.launches = 0
         fast = model(params, z16)
         fast_launches = kup.launches
         seq = model(params, z16, fast=False)
         torch.cuda.synchronize()
         rel = float((fast - seq).abs().max() / seq.abs().max())
-        print(f"church-256 batch 16, pipeline_fast (K1, {fast_launches} "
-              f"launches) vs seq: max diff / max |seq| = {rel:.3e} (limit "
-              f"{FORWARD_RTOL})")
+        print(f"church-256 batch 16, pipeline_fast (K1 on at every layer, "
+              f"{fast_launches} launches) vs seq: max diff / max |seq| = "
+              f"{rel:.3e} (limit {FORWARD_RTOL})")
         if fast_launches != 6 or not rel <= FORWARD_RTOL:
             raise AssertionError(f"pipeline_fast vs seq: {rel}, "
                                  f"{fast_launches} K1 launches")
         del fast, seq
-        for mode in ("auto", "off"):   # a batch's stream span, both paths
-            kup.set_fused_upconv(mode)
+        # (label, gate mode, min_res, K1 launches per batch of 16)
+        modes = (("off", "off", 256, 0), ("on", "on", 256, 1),
+                 ("on-all", "on", 0, 6))
+        spans = {}
+        for label, mode, min_res, _ in modes + modes[::-1]:
+            kup.set_fused_upconv(mode, min_res=min_res)
             ms = time_ms(torch, lambda: model(params, z16), runs=10)
-            print(f"church-256 forward at batch 16, K1 {mode}: {ms:.3f} ms "
+            spans.setdefault(label, []).append(ms)
+            print(f"church-256 forward at batch 16, K1 {label}: {ms:.3f} ms "
                   f"stream span (CUDA events) = {16e3 / ms:.2f} images/s")
-        for mode in ("auto", "off"):   # warm both paths at batch 16
-            kup.set_fused_upconv(mode)
+        for label, mode, min_res, _ in modes:   # warm each path at batch 16
+            kup.set_fused_upconv(mode, min_res=min_res)
             check_sampling(model, params, os.path.join(tmp.name,
-                                                       f"warm_{mode}"), 16, 16)
+                                                       f"warm_{label}"),
+                           16, 16)
         sampling = {}
-        for run, mode in enumerate(("auto", "off", "off", "auto")):
-            kup.set_fused_upconv(mode)
+        for run, (label, mode, min_res, per_batch) in enumerate(
+                modes + modes[::-1]):
+            kup.set_fused_upconv(mode, min_res=min_res)
             kup.launches = kblur.launches = 0
-            out = os.path.join(tmp.name, f"clean_{mode}_{run}")
+            out = os.path.join(tmp.name, f"clean_{label}_{run}")
             res = check_sampling(
                 model, params, out, 64, 16, counts=lambda: {
                     "k1_launches": kup.launches,
                     "k2_launches": kblur.launches})
-            sampling.setdefault(mode, []).append(res)
-            print(f"sample_clean 64 images at batch 16, K1 {mode}: "
+            sampling.setdefault(label, []).append(res)
+            print(f"sample_clean 64 images at batch 16, K1 {label}: "
                   f"{res['wall_s']:.3f} s = {res['images_per_s']:.2f} "
                   f"images/s; K1 launches {res['k1_launches']}, K2 launches "
                   f"{res['k2_launches']}; image 3 within {res['lsb']} LSB of "
                   "a direct render")
-        kup.set_fused_upconv("auto")
-        k1_path = sampling["auto"][0]["k1_launches"]
-        kernels["upconv_blur"]["launches"] = k1_path
-        if k1_path != 6 * 4:
-            raise AssertionError(f"K1 launched {k1_path} times on 4 batches, "
-                                 "want 6 a batch")
-        print(json.dumps({"sampling": sampling}))
+            if res["k1_launches"] != 4 * per_batch:
+                raise AssertionError(f"K1 {label} launched "
+                                     f"{res['k1_launches']} times on 4 "
+                                     f"batches, want {4 * per_batch}")
+        kup.set_fused_upconv("off", min_res=256)
+        kernels["upconv_blur"]["launches"] = \
+            sampling["on-all"][0]["k1_launches"]
+        print(json.dumps({"sampling": sampling, "stream_span_ms": spans}))
         phase("9 sampling path", t0)
 
         # 10. sample_edited: dome2tree at layer 8, then 32 samples -------------
@@ -670,10 +741,14 @@ def main() -> int:
             request = json.load(f)
         edited_dir = os.path.join(tmp.name, "edited")
         t1 = time.time()
-        sample_edited(model, params, request, layernum, edited_dir, n=32,
-                      batch_size=16)
+        kup.set_fused_upconv("on", min_res=0)
+        try:
+            sample_edited(model, params, request, layernum, edited_dir,
+                          n=32, batch_size=16)
+        finally:
+            kup.set_fused_upconv("off", min_res=256)
         torch.cuda.synchronize()
-        clean_dir = os.path.join(tmp.name, "clean_auto_0")
+        clean_dir = os.path.join(tmp.name, "clean_on-all_2")
         changed = []
         for i in range(32):
             with open(os.path.join(edited_dir, f"{i}.png"), "rb") as f:

@@ -9,11 +9,13 @@ names mirror the reference module paths (``layer8.sconv.mconv.dconv``), so
 saved edit requests and surgery code work unchanged.
 
 ``pipeline_fast``, the default of ``__call__``, has the same stages and
-reads the same params; at every upsampling layer with a 4-tap FIR its
-dconv runs the fused up-conv + blur + epilogue kernel (K1,
-``ops/upconv_blur.py``) and its blur, noise and activate stages pass the
-bag through (JAX package :237-308).  The statistics and the edits run on
-``pipeline``, whose stage boundaries they read.
+reads the same params; at an upsampling layer with a 4-tap FIR whose
+shape passes K1's gate (``ops/upconv_blur.set_fused_upconv``, "off" by
+default as in the JAX package) its dconv runs the fused up-conv + blur +
+epilogue kernel (K1, ``ops/upconv_blur.py``) and its blur, noise and
+activate stages pass the bag through (JAX package :237-308).  The
+statistics and the edits run on ``pipeline``, whose stage boundaries they
+read.
 
 Layout: activations are NCHW inside; ``__call__`` returns NHWC images, as
 the JAX package's does.  Weights are in torch order, as in the JAX
@@ -180,11 +182,12 @@ def _make_blur(blur_kernel, pad, upsample_factor):
     return fn
 
 
-def _make_fused_upconv_dconv(prefix, in_c, blur_kernel):
+def _make_fused_upconv_dconv(prefix, in_c, out_c, blur_kernel, res=None):
     """pipeline_fast's dconv at an upsampling layer (JAX package :237-282):
-    with the fused kernel on, dconv AND blur (and, with the epilogue,
-    noise and activate too) in one pass of K1; else the seq dconv, and
-    the stages after it run as in the seq pipeline.  Takes the FULL params
+    where the gate passes for (in_c, out_c, res), dconv AND blur (and,
+    with the epilogue, noise and activate too) in one pass of K1; else the
+    seq dconv, and the stages after it run as in the seq pipeline.  `res`
+    is the layer's output resolution.  Takes the FULL params
     (``_full_params``): the epilogue reads the noise and activate stages'
     parameters."""
     seq_fn = _make_dconv(in_c, 3, True)
@@ -194,14 +197,14 @@ def _make_fused_upconv_dconv(prefix, in_c, blur_kernel):
 
     def fn(params, d: DataBag) -> DataBag:
         own = params.get(f"{prefix}.mconv.dconv", {})
-        if not fused_upconv_active():
+        if not fused_upconv_active(in_c, out_c, res):
             return seq_fn(own, d)
         w = own["weight"][0] * scale
         wf = torch.flip(w, (-2, -1))             # correlation taps
         x = d["fmap"]
         # demod commutes with the channel-wise blur
         demod = _demod(w, d["style"])
-        if not fused_epilogue_active():
+        if not fused_epilogue_active(in_c, out_c, res):
             return DataBag(d, fmap=upconv_blur(x, wf, kf)
                            * demod[:, :, None, None])
         b, _, h, wd = x.shape
@@ -228,12 +231,12 @@ def _make_shape_dispatch_blur(blur_kernel, pad, upsample_factor):
     return fn
 
 
-def _make_epilogue_skip(seq_fn):
+def _make_epilogue_skip(seq_fn, in_c, out_c, res):
     """pipeline_fast's noise / activate at a fused layer (JAX package
     :299-308): the identity when the epilogue ran in the kernel, under the
     same gate as the dconv stage."""
     def fn(params, d: DataBag) -> DataBag:
-        if fused_epilogue_active():
+        if fused_epilogue_active(in_c, out_c, res):
             return d
         return seq_fn(params, d)
     return fn
@@ -363,12 +366,13 @@ class SeqStyleGAN2:
                     and not (out_c <= 32 and (res or 0) >= 512)):
                 self._fast_overrides.update({
                     f"{prefix}.mconv.dconv": _make_fused_upconv_dconv(
-                        prefix, in_c, self.blur_kernel),
+                        prefix, in_c, out_c, self.blur_kernel, res),
                     f"{prefix}.mconv.blur": _make_shape_dispatch_blur(
                         self.blur_kernel, pad, factor),
-                    f"{prefix}.noise": _make_epilogue_skip(_noise_inject),
+                    f"{prefix}.noise": _make_epilogue_skip(
+                        _noise_inject, in_c, out_c, res),
                     f"{prefix}.activate": _make_epilogue_skip(
-                        _fused_lrelu_stage)})
+                        _fused_lrelu_stage, in_c, out_c, res)})
             return sub
 
         def to_rgb(name, in_c, lat_idx, skip):

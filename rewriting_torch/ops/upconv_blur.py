@@ -29,18 +29,27 @@ the epilogue, ``demod`` (B, O), ``noise`` (B or 1, 1, 2H, 2W) already
 scaled by the noise weight (a batch of one is served to every batch
 index) and ``bias`` (O,).  The output is (B, O, 2H, 2W).
 
-The gate (``set_fused_upconv`` and friends) keeps the JAX package's names.
-Its modes: ``"auto"`` (the default) and ``"on"`` both send every
-upsampling layer with a 4-tap FIR through this kernel with its epilogue;
-``"off"`` runs the seq stages.  The JAX package's channel and resolution
-gates came from TPU runtime limits and TPU timings and are not carried
-over.
+The gate (``set_fused_upconv`` and friends) keeps the JAX package's names,
+signatures and semantics (its ``ops/pallas_upconv.py:246-292``).  The
+default is ``"off"``: ``pipeline_fast`` runs the seq stages.  ``"on"``
+sends a layer through this kernel when both channel counts are at least 64
+and multiples of 8 and its output resolution is at least ``min_res`` (256
+by default; ``set_fused_upconv("on", min_res=0)`` takes every such layer).
+The JAX ``"auto"`` is ``"on"`` behind a TPU capability probe; the port
+needs no probe (on a CUDA tensor the kernel launches or raises), so here
+``"auto"`` is ``"on"`` with the same gates.  ``set_fused_epilogue``
+toggles the in-kernel epilogue, as in the JAX package.
+
+:func:`_plan` picks the kernel's tile for a layer shape; it and the
+3xTF32 model (:func:`_tf32_round`, :func:`_split_matmul_3xtf32`) are plain
+Python so that the CPU tests reach them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,41 +62,149 @@ from .fused_act import fused_leaky_relu
 # launches of the CUDA kernel since the counter was last set to 0
 launches = 0
 
-_MODE = "auto"      # "off" | "on" | "auto"
-_EPILOGUE = True
+_FUSED_MODE = "off"     # "off" | "on" | "auto"
+_FUSED_MIN_RES = 256    # least OUTPUT resolution of a fused layer
+_FUSED_EPILOGUE = True
 
 
-def set_fused_upconv(mode: str) -> None:
-    """Select the up-conv of ``pipeline_fast``'s upsampling layers: "auto"
-    and "on" run this kernel, "off" the seq stages."""
-    global _MODE
+def set_fused_upconv(mode: str, min_res: Optional[int] = None) -> None:
+    """Select the up-conv of ``pipeline_fast``'s upsampling layers: "off"
+    runs the seq stages, "on" and "auto" this kernel where the gates of
+    :func:`fused_upconv_active` pass.  ``min_res``, if given, sets the
+    least output resolution of a fused layer."""
+    global _FUSED_MODE, _FUSED_MIN_RES
     if mode not in ("off", "on", "auto"):
         raise ValueError(f"fused up-conv mode {mode!r}: off, on or auto")
-    _MODE = mode
-
-
-def fused_upconv_active() -> bool:
-    return _MODE != "off"
+    _FUSED_MODE = mode
+    if min_res is not None:
+        _FUSED_MIN_RES = min_res
 
 
 def set_fused_epilogue(on: bool) -> None:
     """Toggle the in-kernel demod + noise + bias + leaky-ReLU epilogue (on
     by default)."""
-    global _EPILOGUE
-    _EPILOGUE = bool(on)
+    global _FUSED_EPILOGUE
+    _FUSED_EPILOGUE = bool(on)
 
 
-def fused_epilogue_active() -> bool:
-    return _EPILOGUE and fused_upconv_active()
+def fused_upconv_active(in_c: int, out_c: int,
+                        res: Optional[int] = None) -> bool:
+    """Whether a layer of ``in_c`` -> ``out_c`` channels at OUTPUT
+    resolution ``res`` runs this kernel: the JAX package's gates."""
+    if _FUSED_MODE == "off":
+        return False
+    if in_c < 64 or out_c < 64 or in_c % 8 or out_c % 8:
+        return False
+    return res is None or res >= _FUSED_MIN_RES
+
+
+def fused_epilogue_active(in_c: int, out_c: int,
+                          res: Optional[int] = None) -> bool:
+    return _FUSED_EPILOGUE and fused_upconv_active(in_c, out_c, res)
+
+
+def flipped_taps(kf) -> np.ndarray:
+    """The flipped 1-D blur taps (float32, host): the kernel's two blur
+    passes use them."""
+    c = np.ascontiguousarray(np.asarray(kf, np.float32)[::-1])
+    if c.shape != (4,):
+        raise ValueError(f"the fused up-conv takes 4 blur taps, got {kf}")
+    return c
 
 
 def blur_taps(kf) -> np.ndarray:
     """The 4x4 flipped blur taps, outer product of the flipped 1-D taps
     (float32, host)."""
-    c = np.asarray(kf, np.float32)[::-1]
-    if c.shape != (4,):
-        raise ValueError(f"the fused up-conv takes 4 blur taps, got {kf}")
+    c = flipped_taps(kf)
     return np.ascontiguousarray(np.outer(c, c).astype(np.float32))
+
+
+# The kernel's fixed shape (csrc/upconv_blur.cu): a warp holds 32
+# positions x 16 output channels; a 3-stage ring; at most 384 threads and
+# 232448 bytes of shared memory a block; 132 SMs on an H100 SXM.
+_WARP_M, _WARP_N, _STAGES = 32, 16, 3
+_MAX_SMEM, _SMS = 232448, 132
+
+
+class Tile(NamedTuple):
+    """A block's tile: ``nimg`` whole images or one image's ``th`` x ``tw``
+    input positions (plus the phase halo), ``warps_m`` x ``warps_n``
+    warps, input channels staged ``kc`` at a time."""
+    nimg: int
+    th: int
+    tw: int
+    warps_m: int
+    warps_n: int
+    kc: int
+
+
+def _pad_banks(n: int) -> int:
+    return n + (8 - n % 32) % 32
+
+
+def _geometry(t: Tile) -> dict:
+    """What the launcher checks of a tile, as ``geometry`` in
+    ``csrc/upconv_blur.cu`` derives it: the block's positions (tile and
+    halo), output channels and threads, and its shared memory in bytes
+    (the larger of the cp.async ring and the blur's buffers)."""
+    ph, pw, xh, xw = t.th + 2, t.tw + 2, t.th + 3, t.tw + 3
+    nblk = t.warps_n * _WARP_N
+    xk = _pad_banks(t.nimg * xh * xw)
+    wk = _pad_banks(9 * nblk)
+    ring = _STAGES * t.kc * (xk + wk)
+    epi = nblk * t.nimg * (2 * ph * (2 * pw + 1)
+                           + (2 * t.th + 3) * (2 * t.tw + 1))
+    return {"m_valid": t.nimg * ph * pw, "nblk": nblk,
+            "threads": t.warps_m * t.warps_n * 32,
+            "smem": 4 * max(ring, epi)}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, in_c: int, h: int, w: int, out_c: int) -> Tile:
+    """The tile for a layer shape.  Maps of at most 64 positions go whole,
+    ``nimg`` images a block, as many as keep the grid at one block per SM
+    or more while the blur's buffers fit; larger maps go in tiles of 8 x
+    16 input positions (10 x 18 with the halo: 6 warps of 32 positions).  Blocks take 32 output
+    channels and stage 32 input channels at a time where that fits.
+    These choices are the fastest of those timed on an H100 at the
+    church-256 shapes (``PERF.md`` §6)."""
+    if min(b, in_c, h, w, out_c) < 1:
+        raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
+    if h * w <= 64:
+        th, tw, nimg, warps_n = h, w, 1, 1
+        oblocks = -(-out_c // _WARP_N)
+        while (2 * nimg <= min(b, 16)
+               and oblocks * -(-b // (2 * nimg)) >= _SMS
+               and _geometry(Tile(2 * nimg, h, w, 1, 1, 8))["smem"]
+               <= _MAX_SMEM):
+            nimg *= 2
+    else:
+        th, tw, nimg = min(8, h), min(16, w), 1
+        warps_n = 2 if out_c > _WARP_N else 1
+    warps_m = -(-nimg * (th + 2) * (tw + 2) // _WARP_M)
+    for kc in (32, 16, 8):
+        t = Tile(nimg, th, tw, warps_m, warps_n, kc)
+        if _geometry(t)["smem"] <= _MAX_SMEM:
+            return t
+    raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
+
+
+def _tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A plain model of the kernel's 3xTF32 product ``a @ b`` (float32):
+    each operand split into hi = tf32(v) and lo = tf32(v - hi), then lo*hi
+    + hi*lo + hi*hi, summed in float32 in the kernel's order.  The tests use
+    it to show that the split is as exact as float32 and plain TF32 is
+    not."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_round(a - ah), _tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 def _epilogue(y, demod, noise, bias):
@@ -119,9 +236,10 @@ def library():
     """The built and loaded launcher ``upconv_blur_f32``."""
     lib = _build.load("upconv_blur")
     fn = lib.upconv_blur_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
-                                ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                              ctypes.c_void_p]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,7 +272,8 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     b, in_c, h, w = x.shape
     out_c = wf.shape[0]
     _check("wf", wf, [(out_c, in_c, 3, 3)], x.device)
-    taps = blur_taps(kf)
+    taps = flipped_taps(kf)
+    tile = _plan(b, in_c, h, w, out_c)
     # (O, I, 3, 3) -> (I, 3, 3, O): a block's weight slice is contiguous
     wp = wf.permute(1, 2, 3, 0).contiguous()
     if epilogue:
@@ -173,7 +292,7 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, in_c, out_c, h,
-                w, taps.ctypes.data, *ptrs, stream)
+                w, taps.ctypes.data, *ptrs, *tile, stream)
     if rc != 0:
         raise RuntimeError(f"upconv_blur kernel launch failed: CUDA error "
                            f"{rc}")

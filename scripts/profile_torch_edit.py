@@ -7,7 +7,8 @@ then times the first ``apply_edit`` of the process (profiled, ranked by
 host time), the same 2001-step solve again and the solve per step, and
 profiles a window of steps and a batch-8 render with ``torch.profiler``.
 The sample part profiles ``sample_clean`` writing 64 images at batch 16,
-with the fused up-conv on ("auto") and off, each after a warm run.
+with the fused up-conv on at all six layers (``set_fused_upconv("on",
+min_res=0)``) and off, each after a warm run.
 Prints the card, one table per profiled part (top operators by device
 time) and one JSON line per part with the wall time, the summed device
 kernel time and the device busy share.
@@ -88,8 +89,8 @@ def profile_sample(model, params, images: int) -> None:
     """``sample_clean`` of `images` church-256 PNGs at batch 16 under the
     profiler, the fused up-conv on and off, each after a warm run."""
     with tempfile.TemporaryDirectory(prefix="profile_sample_") as tmp:
-        for mode in ("auto", "off"):
-            upconv_blur.set_fused_upconv(mode)
+        for mode in ("on", "off"):
+            upconv_blur.set_fused_upconv(mode, min_res=0)
             sample_clean(model, params, os.path.join(tmp, f"warm_{mode}"),
                          n=16, batch_size=16)
             out = os.path.join(tmp, f"clean_{mode}")
@@ -100,7 +101,7 @@ def profile_sample(model, params, images: int) -> None:
             report(f"sample_clean {images}, fused up-conv {mode}", prof,
                    wall, {"images": images,
                           "images_per_s": images / wall})
-        upconv_blur.set_fused_upconv("auto")
+        upconv_blur.set_fused_upconv("off", min_res=256)
 
 
 def profile_edit(model, params, steps: int, window: int) -> None:

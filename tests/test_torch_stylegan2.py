@@ -248,6 +248,18 @@ def _jax_fast(jm, jp, z, epilogue=True):
         jax_upconv.set_fused_epilogue(True)
 
 
+def _torch_fast(tm, tp, z, epilogue=True):
+    """The port's pipeline_fast with K1 forced on at every resolution
+    (its plain version on the CPU), the gates restored after."""
+    upconv_blur.set_fused_upconv("on", min_res=0)
+    upconv_blur.set_fused_epilogue(epilogue)
+    try:
+        return tm(tp, z).numpy()
+    finally:
+        upconv_blur.set_fused_upconv("off", min_res=256)
+        upconv_blur.set_fused_epilogue(True)
+
+
 def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
@@ -261,11 +273,7 @@ def test_pipeline_fast_matches_jax_and_seq(epilogue):
     jm, jp, tm, tp = _fast_pair((1, 3, 3, 1))
     z = np.random.RandomState(6).randn(2, STYLE_DIM).astype(np.float32)
     want = _jax_fast(jm, jp, z, epilogue)
-    upconv_blur.set_fused_epilogue(epilogue)
-    try:
-        got = tm(tp, z).numpy()
-    finally:
-        upconv_blur.set_fused_epilogue(True)
+    got = _torch_fast(tm, tp, z, epilogue)
     seq = tm(tp, z, fast=False).numpy()
     assert got.shape == (2, SIZE, SIZE, 3)
     assert _rel(got, want) < 1e-4
@@ -281,7 +289,7 @@ def test_pipeline_fast_other_blur_kernels(blur_kernel):
     jm, jp, tm, tp = _fast_pair(blur_kernel)
     z = np.random.RandomState(7).randn(2, STYLE_DIM).astype(np.float32)
     want = _jax_fast(jm, jp, z)
-    got = tm(tp, z).numpy()
+    got = _torch_fast(tm, tp, z)
     seq = tm(tp, z, fast=False).numpy()
     assert _rel(got, want) < 1e-4
     if len(blur_kernel) == 4:
@@ -305,16 +313,28 @@ def test_call_returns_nhwc(pair):
 
 
 def test_fused_gate_modes(pair):
-    """"off" runs the seq stages inside pipeline_fast (bit for bit);
-    unknown modes and the unported subpixel pipeline raise."""
+    """"off", the default as in the JAX package, runs the seq stages inside
+    pipeline_fast (bit for bit), and so does "on" at the default min_res
+    of 256 on this 16-pixel model; "on" with min_res=0 runs K1.  The gate
+    takes the JAX signatures; unknown modes and the unported subpixel
+    pipeline raise."""
     _, _, tm, tp, z = pair
-    assert upconv_blur.fused_upconv_active()          # "auto" by default
-    upconv_blur.set_fused_upconv("off")
+    assert upconv_blur._FUSED_MODE == "off"
+    assert upconv_blur._FUSED_MIN_RES == 256
+    assert not upconv_blur.fused_upconv_active(512, 512, 256)
+    assert not upconv_blur.fused_epilogue_active(512, 512)
+    seq = tm(tp, z, fast=False)
+    assert torch.equal(tm(tp, z), seq)
+    upconv_blur.set_fused_upconv("on")
     try:
-        assert not upconv_blur.fused_epilogue_active()
-        assert torch.equal(tm(tp, z), tm(tp, z, fast=False))
+        assert upconv_blur.fused_upconv_active(512, 512, 256)
+        assert not upconv_blur.fused_upconv_active(512, 512, 16)
+        assert torch.equal(tm(tp, z), seq)
+        upconv_blur.set_fused_upconv("on", min_res=0)
+        assert upconv_blur.fused_epilogue_active(512, 512, 16)
+        assert not torch.equal(tm(tp, z), seq)
     finally:
-        upconv_blur.set_fused_upconv("auto")
+        upconv_blur.set_fused_upconv("off", min_res=256)
     with pytest.raises(ValueError):
         upconv_blur.set_fused_upconv("sometimes")
     with pytest.raises(NotImplementedError):
