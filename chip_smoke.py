@@ -24,6 +24,12 @@ set to 0 just before it and read just after:
   model;
 - an edit at the upsampling layer 7, whose solve runs K2's backward.
 
+K2 has two kernels: the separable row-band kernel, which every path runs
+(the model's blur taps are rank 1), and the general k x k kernel for taps
+that are not; both are held against the plain version, forward and
+backward, and the edit loop, sampling, ``sample_edited`` and the layer-7
+edit must launch the general one no time.
+
 Weights are random, drawn from a seed.  Every phase prints one line with
 its elapsed seconds; any failure raises and exits non-zero.  The
 second-to-last line is a JSON object with each kernel's launches on its
@@ -207,6 +213,30 @@ def up2_library(torch, x, kernel):
                                                 padding=1, groups=c)
 
 
+def rank2_kflip(np):
+    """A 4x4 blur whose taps are not rank 1 (the sum of two outer
+    products): the general kernel's case."""
+    k = (np.outer([1, 3, 3, 1], [1, 2, 2, 1])
+         + np.outer([2, 0, 1, 1], [0, 1, 3, 1]))
+    return (k / 40.0).astype(np.float32)
+
+
+def general_blur(torch, kblur, x, taps):
+    """K2's general k x k kernel on any taps, its launcher called
+    straight (uncounted), to hold it against the plain version where the
+    wrapper would take the separable kernel."""
+    n, c, h, w = x.shape
+    shape = kblur.output_shape(x.shape, taps.k, taps.pad)
+    y = torch.empty(shape, device=x.device)
+    rc = kblur.library().blur2d_f32(
+        x.data_ptr(), y.data_ptr(), n * c, h, w, shape[2], shape[3],
+        taps.pad[0], taps.k, taps.taps_ptr,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"general blur2d kernel: CUDA error {rc}")
+    return y
+
+
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
                   nrender: int = 8) -> dict:
     """The paper's edit loop through the port's entry points: statistics
@@ -324,7 +354,8 @@ def main() -> int:
     from rewriting_torch.ops import upconv_blur as kup
     from rewriting_torch.ops import upsample2x as kup2
     from rewriting_torch.ops.precision import apply_parity_tier
-    from rewriting_torch.ops.upfirdn2d import blur2d, upsample2d
+    from rewriting_torch.ops.upfirdn2d import (apply_blur, blur2d, blur_taps,
+                                               upsample2d)
     from rewriting_torch.utils.renormalize import decode_png
     from rewriting_torch.utils.zdataset import standard_z_sample
 
@@ -361,12 +392,14 @@ def main() -> int:
                 print(f"  ptxas {name}:", line.strip())
     phase("2 build", t0)
 
-    # 3. K2 vs plain version -----------------------------------------------------
+    # 3. K2 vs plain version, both kernels -----------------------------------
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    blur_kflip = np.ascontiguousarray(
-        np.flip(make_kernel(list(BLUR_TAPS)) * 4.0, (0, 1)))
-    max_err = 0.0
+    blur_kern = make_kernel(list(BLUR_TAPS))
+    blur_kflip = np.ascontiguousarray(np.flip(blur_kern * 4.0, (0, 1)))
+    layer_taps = blur_taps(blur_kern, (1, 1), 2)
+    rank2 = rank2_kflip(np)
+    max_err = gen_err = 0.0
     rows = []
     cases = [(b, c, h, h, (1, 1), blur_kflip)
              for b in (1, 10) for c, h in MAIN_SHAPES]
@@ -374,37 +407,51 @@ def main() -> int:
               for n, c, h, w, pad in EDGE_CASES]
     cases.append((1, 64, 12, 20, (1, 1), np.ascontiguousarray(
         np.flip(make_kernel([1, 2, 1]), (0, 1)))))
+    cases += [(1, 64, 12, 20, (1, 1), rank2), (10, 512, 17, 17, (1, 1), rank2),
+              (2, 128, 32, 32, (2, 1), rank2)]
     for n, c, h, w, pad, kflip in cases:
         x = torch.randn((n, c, h, w), generator=gen, device="cuda")
-        got = kblur.blur2d_cuda(x, kflip, pad)
-        want = kblur.blur2d_reference(x, kflip, pad)
+        taps = kblur.blur_taps(kflip, pad)
+        got = kblur.blur2d_cuda(x, taps, pad)
+        want = kblur.blur2d_reference(x, taps, pad)
+        general = general_blur(torch, kblur, x, taps)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        print(f"blur2d {(n, c, h, w)} k{kflip.shape[0]} pad {pad} -> "
-              f"{tuple(got.shape)}: max abs diff {err:.3e}")
-        if not err <= BLUR_TOL:
-            raise AssertionError(f"blur2d kernel differs from its plain "
-                                 f"version by {err} > {BLUR_TOL}")
+        gerr = float((general - want).abs().max())
+        path = "general" if taps.factors is None else "separable"
+        max_err, gen_err = max(max_err, err), max(gen_err, gerr)
+        print(f"blur2d {(n, c, h, w)} k{taps.k} pad {pad} -> "
+              f"{tuple(got.shape)}: {path} kernel max abs diff {err:.3e}, "
+              f"general kernel {gerr:.3e}")
+        if not max(err, gerr) <= BLUR_TOL:
+            raise AssertionError(f"blur2d kernels differ from their plain "
+                                 f"version by {err}, {gerr} > {BLUR_TOL}")
     for b in (1, 10):
         for c, h in MAIN_SHAPES:
             x = torch.randn((b, c, h, h), generator=gen, device="cuda")
-            k_ms = time_ms(torch, lambda: kblur.blur2d_cuda(
-                x, blur_kflip, (1, 1)))
+            taps = kblur.blur_taps(blur_kflip, (1, 1))
+            k_ms = time_ms(torch, lambda: blur2d(x, blur_kern, (1, 1), 2))
+            a_ms = time_ms(torch, lambda: apply_blur(x, layer_taps))
+            g_ms = time_ms(torch, lambda: general_blur(torch, kblur, x,
+                                                       taps))
             p_ms = time_ms(torch, lambda: kblur.blur2d_reference(
-                x, blur_kflip, (1, 1)))
+                x, taps, (1, 1)))
             wdw = torch.from_numpy(blur_kflip).cuda().expand(
                 c, 1, 4, 4).contiguous()
             l_ms = time_ms(torch, lambda: F.conv2d(x, wdw, padding=1,
                                                    groups=c))
             y_shape = kblur.output_shape(x.shape, 4, (1, 1))
             bound, by = blur_bound_ms(x.shape, y_shape, 4)
-            rows.append({"shape": [b, c, h, h], "ms": k_ms, "plain_ms": p_ms,
-                         "library_ms": l_ms, "bound_ms": bound,
-                         "bound_by": by})
-            print(f"blur2d time {(b, c, h, h)}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, F.conv2d depthwise {l_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by})")
+            rows.append({"shape": [b, c, h, h], "ms": k_ms,
+                         "layer_ms": a_ms, "general_ms": g_ms,
+                         "plain_ms": p_ms, "library_ms": l_ms,
+                         "bound_ms": bound, "bound_by": by})
+            print(f"blur2d time {(b, c, h, h)}: ops.upfirdn2d.blur2d "
+                  f"(separable) {k_ms:.4f} ms, with the layer's taps "
+                  f"{a_ms:.4f} ms, general kernel {g_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, F.conv2d depthwise {l_ms:.4f} ms"
+                  f"{'' if k_ms <= l_ms else ' (slower than F.conv2d)'}, "
+                  f"bound {bound:.4f} ms ({by})")
             del x
     big = torch.empty(2 ** 28, device="cuda")
     copy_ms = time_ms(torch, lambda: big.clone(), runs=10)
@@ -412,6 +459,7 @@ def main() -> int:
           f"{2 * big.numel() * 4 / (copy_ms * 1e-3) / 1e12:.3f} TB/s "
           "read+write")
     del big
+    print(json.dumps({"blur2d_rows": rows}))
     head = rows[-1]  # the largest main-path shape, batch 10
     kernels["blur2d"] = {
         "name": "blur2d", "route": "cuda",
@@ -419,10 +467,13 @@ def main() -> int:
         "replaces": "rewriting_tpu/ops/pallas_upfirdn.py:85 "
                     "(blur2d_pallas; blur2d_pallas_bs :230)",
         "launches": None, "max_abs_err": max_err, "max_abs_diff": max_err,
-        "at": head["shape"], "ms": head["ms"], "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
-    phase("3 kernel vs plain version", t0)
+        "general_max_abs_err": gen_err, "at": head["shape"],
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "general_ms": head["general_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "copy_tb_per_s":
+            2 * 2 ** 28 * 4 / (copy_ms * 1e-3) / 1e12}
+    phase("3 K2 vs plain version", t0)
 
     # 4. church-256 forward on the card vs the CPU --------------------------------
     t0 = time.time()
@@ -448,13 +499,18 @@ def main() -> int:
 
     # 5. the edit loop (main path of slice 1) ----------------------------------
     t0 = time.time()
-    kblur.launches = 0
+    kblur.launches = kblur.general_launches = 0
     loop = run_edit_loop(model, params, niter=2001)
     kernels["blur2d"]["launches"] = kblur.launches
+    kernels["blur2d"]["general_launches"] = kblur.general_launches
     print(json.dumps({"edit_loop": loop}))
-    print(f"blur2d launches on the edit loop: {kblur.launches}")
+    print(f"blur2d launches on the edit loop: {kblur.launches}, of the "
+          f"general kernel {kblur.general_launches}")
     if kblur.launches <= 0:
         raise AssertionError("the edit loop never launched the blur kernel")
+    if kblur.general_launches != 0:
+        raise AssertionError("the edit loop launched the general blur "
+                             "kernel")
     phase("5 edit loop", t0)
 
     # 6. K1 vs plain version -------------------------------------------------------
@@ -561,43 +617,78 @@ def main() -> int:
         "composite_ms": head["composite_ms"]}
     phase("6 K1 vs plain version", t0)
 
-    # 7. K2's backward vs autograd of the plain version -----------------------------
+    # 7. K2's backward vs autograd of the plain version, both kernels ---------
     t0 = time.time()
-    max_err = 0.0
+    max_err = gen_err = 0.0
+    back_rows = []
     for b in (1, 10):
         for c, h in MAIN_SHAPES:
             x = torch.randn((b, c, h, h), generator=gen, device="cuda",
                             requires_grad=True)
-            y = blur2d(x, make_kernel(list(BLUR_TAPS)), (1, 1), 2)
+            y = blur2d(x, blur_kern, (1, 1), 2)
             gy = torch.randn(y.shape, generator=gen, device="cuda")
             y.backward(gy)
             x2 = x.detach().requires_grad_(True)
             kblur.blur2d_reference(x2, blur_kflip, (1, 1)).backward(gy)
+            adj = kblur.blur_taps(blur_kflip, (1, 1)).adjoint
+            general = general_blur(torch, kblur, gy, adj)
             torch.cuda.synchronize()
             err = float((x.grad - x2.grad).abs().max())
-            max_err = max(max_err, err)
-            print(f"blur2d backward {(b, c, h, h)}: max abs diff {err:.3e}")
-            if not err <= BLUR_TOL:
+            gerr = float((general - x2.grad).abs().max())
+            max_err, gen_err = max(max_err, err), max(gen_err, gerr)
+            print(f"blur2d backward {(b, c, h, h)}: separable kernel max abs "
+                  f"diff {err:.3e}, general kernel {gerr:.3e}")
+            if not max(err, gerr) <= BLUR_TOL:
                 raise AssertionError(f"blur2d backward differs from autograd "
-                                     f"of the plain version by {err}")
-    taps, apad = kblur.adjoint(blur_kflip, (1, 1))
-    wrot = torch.from_numpy(taps).cuda().expand(c, 1, 4, 4).contiguous()
-    bk_ms = time_ms(torch, lambda: kblur.blur2d_backward_cuda(
-        gy, blur_kflip, (1, 1)))
-    bp_ms = time_ms(torch, lambda: kblur.blur2d_backward_reference(
-        gy, blur_kflip, (1, 1)))
-    bl_ms = time_ms(torch, lambda: F.conv2d(gy, wrot, padding=apad[0],
-                                            groups=c))
-    bb, bby = blur_bound_ms(gy.shape, x.shape, 4)
-    print(f"blur2d backward time {tuple(gy.shape)} -> {tuple(x.shape)}: "
-          f"kernel {bk_ms:.4f} ms, plain {bp_ms:.4f} ms, F.conv2d depthwise "
-          f"{bl_ms:.4f} ms, bound {bb:.4f} ms ({bby})")
+                                     f"of the plain version by {err}, {gerr}")
+            x = x.detach()
+            del x2, y
+            bk_ms = time_ms(torch, lambda: kblur.blur2d_backward_cuda(
+                gy, blur_kflip, (1, 1)))
+            bg_ms = time_ms(torch, lambda: general_blur(torch, kblur, gy,
+                                                        adj))
+            bp_ms = time_ms(torch, lambda: kblur.blur2d_backward_reference(
+                gy, blur_kflip, (1, 1)))
+            wrot = torch.from_numpy(np.array(adj.kflip)).cuda().expand(
+                c, 1, 4, 4).contiguous()
+            bl_ms = time_ms(torch, lambda: F.conv2d(gy, wrot,
+                                                    padding=adj.pad[0],
+                                                    groups=c))
+            bb, bby = blur_bound_ms(gy.shape, x.shape, 4)
+            back_rows.append({"shape": list(gy.shape), "ms": bk_ms,
+                              "general_ms": bg_ms, "plain_ms": bp_ms,
+                              "library_ms": bl_ms, "bound_ms": bb,
+                              "bound_by": bby})
+            print(f"blur2d backward time {tuple(gy.shape)} -> "
+                  f"{tuple(x.shape)}: separable {bk_ms:.4f} ms, general "
+                  f"kernel {bg_ms:.4f} ms, plain {bp_ms:.4f} ms, F.conv2d "
+                  f"depthwise {bl_ms:.4f} ms, bound {bb:.4f} ms ({bby})")
+            del x, gy, wrot
+    # the rank-2 blur's backward: the general kernel through the wrapper
+    x = torch.randn((2, 128, 33, 33), generator=gen, device="cuda")
+    gy = torch.randn((2, 128, 32, 32), generator=gen, device="cuda")
+    got = kblur.blur2d_backward_cuda(gy, rank2, (1, 1))
+    want = kblur.blur2d_backward_reference(gy, rank2, (1, 1))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    gen_err = max(gen_err, err)
+    print(f"blur2d backward, rank-2 taps, {tuple(gy.shape)} -> "
+          f"{tuple(got.shape)}: general kernel max abs diff {err:.3e}")
+    if tuple(got.shape) != tuple(x.shape) or not err <= BLUR_TOL:
+        raise AssertionError(f"rank-2 blur2d backward differs by {err}")
+    del x, gy, got, want
+    print(json.dumps({"blur2d_backward_rows": back_rows}))
+    head = back_rows[-1]
     kernels["blur2d"].update({
         "backward_launches": None, "backward_max_abs_err": max_err,
-        "backward_ms": bk_ms, "backward_plain_ms": bp_ms,
-        "backward_library_ms": bl_ms, "backward_bound_ms": bb,
-        "backward_bound_by": bby})
-    del x, x2, y, gy
+        "general_max_abs_err": max(gen_err,
+                                   kernels["blur2d"]["general_max_abs_err"]),
+        "backward_at": head["shape"], "backward_ms": head["ms"],
+        "backward_general_ms": head["general_ms"],
+        "backward_plain_ms": head["plain_ms"],
+        "backward_library_ms": head["library_ms"],
+        "backward_bound_ms": head["bound_ms"],
+        "backward_bound_by": head["bound_by"]})
     phase("7 K2 backward vs autograd", t0)
 
     # 8. K3 vs plain version, then the upsample2d path -------------------------------
@@ -704,18 +795,23 @@ def main() -> int:
         for run, (label, mode, min_res, per_batch) in enumerate(
                 modes + modes[::-1]):
             kup.set_fused_upconv(mode, min_res=min_res)
-            kup.launches = kblur.launches = 0
+            kup.launches = kblur.launches = kblur.general_launches = 0
             out = os.path.join(tmp.name, f"clean_{label}_{run}")
             res = check_sampling(
                 model, params, out, 64, 16, counts=lambda: {
                     "k1_launches": kup.launches,
-                    "k2_launches": kblur.launches})
+                    "k2_launches": kblur.launches,
+                    "k2_general_launches": kblur.general_launches})
             sampling.setdefault(label, []).append(res)
             print(f"sample_clean 64 images at batch 16, K1 {label}: "
                   f"{res['wall_s']:.3f} s = {res['images_per_s']:.2f} "
                   f"images/s; K1 launches {res['k1_launches']}, K2 launches "
-                  f"{res['k2_launches']}; image 3 within {res['lsb']} LSB of "
-                  "a direct render")
+                  f"{res['k2_launches']} (general kernel "
+                  f"{res['k2_general_launches']}); image 3 within "
+                  f"{res['lsb']} LSB of a direct render")
+            if res["k2_general_launches"] != 0:
+                raise AssertionError(f"sampling, K1 {label}, launched the "
+                                     "general blur kernel")
             if res["k1_launches"] != 4 * per_batch:
                 raise AssertionError(f"K1 {label} launched "
                                      f"{res['k1_launches']} times on 4 "
@@ -723,6 +819,8 @@ def main() -> int:
         kup.set_fused_upconv("off", min_res=256)
         kernels["upconv_blur"]["launches"] = \
             sampling["on-all"][0]["k1_launches"]
+        kernels["blur2d"]["sampling_launches"] = {
+            label: runs[0]["k2_launches"] for label, runs in sampling.items()}
         print(json.dumps({"sampling": sampling, "stream_span_ms": spans}))
         phase("9 sampling path", t0)
 
@@ -742,11 +840,17 @@ def main() -> int:
         edited_dir = os.path.join(tmp.name, "edited")
         t1 = time.time()
         kup.set_fused_upconv("on", min_res=0)
+        kblur.launches = kblur.general_launches = 0
         try:
             sample_edited(model, params, request, layernum, edited_dir,
                           n=32, batch_size=16)
         finally:
             kup.set_fused_upconv("off", min_res=256)
+        print(f"blur2d launches on sample_edited: {kblur.launches}, of the "
+              f"general kernel {kblur.general_launches}")
+        if kblur.general_launches != 0:
+            raise AssertionError("sample_edited launched the general blur "
+                                 "kernel")
         torch.cuda.synchronize()
         clean_dir = os.path.join(tmp.name, "clean_on-all_2")
         changed = []
@@ -767,15 +871,20 @@ def main() -> int:
 
     # 11. an edit at the upsampling layer 7: K2's backward ----------------------
     t0 = time.time()
-    kblur.backward_launches = 0
+    kblur.launches = kblur.backward_launches = kblur.general_launches = 0
     loop7 = run_edit_loop(model, params, niter=201, layernum=7, nrender=4)
     kernels["blur2d"]["backward_launches"] = kblur.backward_launches
+    kernels["blur2d"]["general_launches"] += kblur.general_launches
     print(json.dumps({"edit_layer7": loop7}))
-    print(f"blur2d backward launches on the layer-7 edit: "
-          f"{kblur.backward_launches}")
+    print(f"blur2d launches on the layer-7 edit: {kblur.launches} forward, "
+          f"{kblur.backward_launches} backward, of the general kernel "
+          f"{kblur.general_launches}")
     if kblur.backward_launches <= 0:
         raise AssertionError("the layer-7 solve never launched K2's "
                              "backward")
+    if kblur.general_launches != 0:
+        raise AssertionError("the layer-7 edit launched the general blur "
+                             "kernel")
     phase("11 edit at layer 7", t0)
 
     # 12. kernels line, 13. result -------------------------------------------------

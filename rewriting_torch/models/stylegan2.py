@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
-from ..ops.upfirdn2d import blur2d
+from ..ops.upfirdn2d import apply_blur, blur_taps
 from ..ops.precision import apply_parity_tier
 from ..ops.upconv_blur import (fused_epilogue_active, fused_upconv_active,
                                upconv_blur)
@@ -175,10 +175,10 @@ def _demod(w, style):
 
 
 def _make_blur(blur_kernel, pad, upsample_factor):
-    kern = make_kernel(blur_kernel)
+    taps = blur_taps(make_kernel(blur_kernel), pad, upsample_factor)
 
     def fn(params, d: DataBag) -> DataBag:
-        return DataBag(d, fmap=blur2d(d["fmap"], kern, pad, upsample_factor))
+        return DataBag(d, fmap=apply_blur(d["fmap"], taps))
     return fn
 
 

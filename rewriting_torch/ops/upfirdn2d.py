@@ -18,11 +18,13 @@ upsample of ``ops/upsample2x.py`` (K3), as the JAX package does
 ``upfirdn2d``.  ``blur2d`` and K3 dispatch on the tensor's device: a CPU
 tensor takes the plain version, a CUDA tensor the hand-written kernel
 (``ops/blur2d.py``, K2, with its backward for a tensor that requires a
-gradient).
+gradient).  ``blur_taps`` prepares a blur's taps once and ``apply_blur``
+runs them, the short path the model's layers take.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -78,21 +80,40 @@ def upsample2d(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
     return upfirdn2d(x, kernel, up=factor, down=1, pad=pad)
 
 
-def blur2d(x: torch.Tensor, kernel, pad: Tuple[int, int],
-           upsample_factor: int = 1) -> torch.Tensor:
-    """FIR blur (reference Blur): ``upfirdn2d(x, kernel * factor**2, pad)``.
+def blur_taps(kernel, pad: Tuple[int, int], upsample_factor: int = 1
+              ) -> _blur.BlurTaps:
+    """The prepared taps of the FIR blur (reference Blur): ``kernel *
+    factor**2``, flipped, for ``pad``; made once per kernel, pad and
+    factor, so that a layer can hold its own (``models/stylegan2.py``)."""
+    k = np.ascontiguousarray(kernel, np.float32)
+    return _scaled_taps(k.tobytes(), k.shape, (int(pad[0]), int(pad[1])),
+                        int(upsample_factor))
 
-    A CUDA tensor goes to the hand-written kernel, which launches or
-    raises (through its autograd Function when the tensor requires a
-    gradient); a CPU tensor goes to the plain version."""
-    kernel = np.asarray(kernel, np.float32)
+
+@functools.lru_cache(maxsize=None)
+def _scaled_taps(data: bytes, shape, pad, upsample_factor: int):
+    kernel = np.frombuffer(data, np.float32).reshape(shape)
     if upsample_factor > 1:
         kernel = kernel * (upsample_factor ** 2)
-    kflip = np.ascontiguousarray(np.flip(kernel, (0, 1)))
+    return _blur.blur_taps(np.flip(kernel, (0, 1)), pad)
+
+
+def apply_blur(x: torch.Tensor, taps: _blur.BlurTaps) -> torch.Tensor:
+    """The blur with taps from :func:`blur_taps`.  A CUDA tensor goes to
+    the hand-written kernel, which launches or raises (through its
+    autograd Function when the tensor requires a gradient); a CPU tensor
+    goes to the plain version."""
     if x.device.type == "cuda":
         if x.requires_grad and torch.is_grad_enabled():
-            return _blur.Blur2dFunction.apply(x, kflip, pad)
-        return _blur.blur2d_cuda(x, kflip, pad)
+            return _blur.Blur2dFunction.apply(x, taps, taps.pad)
+        return _blur.blur2d_cuda(x, taps, taps.pad)
     if x.device.type == "cpu":
-        return _blur.blur2d_reference(x, kflip, pad)
+        return _blur.blur2d_reference(x, taps, taps.pad)
     raise RuntimeError(f"blur2d has no path for device {x.device}")
+
+
+def blur2d(x: torch.Tensor, kernel, pad: Tuple[int, int],
+           upsample_factor: int = 1) -> torch.Tensor:
+    """FIR blur (reference Blur): ``upfirdn2d(x, kernel * factor**2,
+    pad)``, through :func:`apply_blur`."""
+    return apply_blur(x, blur_taps(kernel, pad, upsample_factor))

@@ -11,7 +11,8 @@ with the fused up-conv on at all six layers (``set_fused_upconv("on",
 min_res=0)``) and off, each after a warm run.
 Prints the card, one table per profiled part (top operators by device
 time) and one JSON line per part with the wall time, the summed device
-kernel time and the device busy share.
+kernel time, the device busy share and the device time of K2's kernels
+(``blur2d_ms``).
 
     python3 scripts/profile_torch_edit.py [--parts edit,sample]
         [--steps 200] [--window 20] [--images 64]
@@ -44,15 +45,17 @@ MASK = os.path.join(ROOT, "notebooks", "masks", "stylegan", "church",
                     "dome2tree.json")
 
 
-def device_ms(prof) -> float:
-    """Summed time of the device's kernels and copies, in ms.  Operator
-    rows (whose device time is their kernels') and user annotations such
-    as ``Optimizer.step`` (which span kernels) are left out."""
+def device_ms(prof, name: str = "") -> float:
+    """Summed time of the device's kernels and copies, in ms (of those
+    whose name holds `name`, when given).  Operator rows (whose device
+    time is their kernels') and user annotations such as
+    ``Optimizer.step`` (which span kernels) are left out."""
     total = 0.0
     for e in prof.key_averages():
         if (e.device_type == DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)
-                and not e.key.startswith("Optimizer.")):
+                and not e.key.startswith("Optimizer.")
+                and name in e.key):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / 1e3
@@ -72,7 +75,8 @@ def report(name, prof, wall_s, extra=None, by_host=False):
     print(averages.table(sort_by=key, row_limit=15))
     dev = device_ms(prof)
     line = {"part": name, "wall_ms": wall_s * 1e3, "device_ms": dev,
-            "device_busy": dev / (wall_s * 1e3)}
+            "device_busy": dev / (wall_s * 1e3),
+            "blur2d_ms": device_ms(prof, "blur2d")}
     line.update(extra or {})
     print(json.dumps(line))
 

@@ -5,11 +5,17 @@ and its backward against their plain versions; here the plain version
 ``blur2d_reference`` is held against the Pallas kernels it stands for, run
 as tests/test_pallas.py runs them on the CPU (interpret mode), and against
 the XLA ``upfirdn2d``; its gradient against ``jax.grad``; and the adjoint
-formula the CUDA backward launches against autograd.  Inputs are NHWC
-numpy arrays from a seed, transposed to NCHW for the port.
+formula the CUDA backward launches against autograd.  For the separable
+kernel: the factors of the taps, its cut of a launch (its block, warp and
+segment loops transliterated to numpy), its order of sums against the
+plain version and the Pallas kernel, and its launch path with a stand-in
+library.  Inputs are NHWC numpy arrays from a seed, transposed to NCHW
+for the port.
 """
 
+import ctypes
 import os
+import re
 import stat
 
 import jax.numpy as jnp
@@ -17,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+
+import chip_smoke
 
 from rewriting_tpu.ops import upfirdn2d as jax_upfirdn2d
 from rewriting_tpu.ops.pallas_upfirdn import blur2d_pallas, blur2d_pallas_bs
@@ -26,7 +34,9 @@ from rewriting_tpu.ops.upfirdn2d import (blur2d as jax_blur2d,
 from rewriting_torch.ops import _build, make_kernel, upfirdn2d, upsample2d
 from rewriting_torch.ops.blur2d import (adjoint, blur2d_backward_reference,
                                         blur2d_cuda, blur2d_reference)
+from rewriting_torch.ops import blur2d as kb
 from rewriting_torch.ops.upfirdn2d import blur2d
+from rewriting_torch.ops.upfirdn2d import blur_taps as layer_taps
 
 torch.set_num_threads(1)
 
@@ -309,3 +319,268 @@ def test_blur_function_launches_forward_and_adjoint(monkeypatch):
     blur2d_reference(x2, kflip, (2, 1)).backward(torch.from_numpy(g))
     np.testing.assert_allclose(xt.grad.numpy(), x2.grad.numpy(), atol=1e-5,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The separable kernel: its factors, its cut of a launch, its order of sums
+# and its launch path
+# ---------------------------------------------------------------------------
+
+# (1-D taps, gain): the model's blur at both gains, a 3-tap FIR and an
+# asymmetric list
+SEP_TAPS = [((1, 3, 3, 1), 1.0), ((1, 3, 3, 1), 4.0), ((1, 2, 1), 1.0),
+            ((1, 2, 3, 1), 1.0)]
+SEP_IDS = [f"{''.join(map(str, t))}-gain{g:g}" for t, g in SEP_TAPS]
+# a rank-2 4x4 kernel, the one chip_smoke.py holds the general kernel to
+RANK2 = chip_smoke.rank2_kflip(np)
+
+
+def _kflip(taps, gain):
+    return np.ascontiguousarray(np.flip(make_kernel(list(taps)) * gain,
+                                        (0, 1)))
+
+
+@pytest.mark.parametrize("adj", [False, True], ids=["forward", "adjoint"])
+@pytest.mark.parametrize("taps,gain", SEP_TAPS, ids=SEP_IDS)
+def test_separable_factors_exact_to_one_ulp(taps, gain, adj):
+    """The factors of make_kernel's taps and of their 180-degree rotation
+    (the backward's) give the taps back to within 1 ulp of the largest."""
+    kflip = _kflip(taps, gain)
+    if adj:
+        kflip = adjoint(kflip, (1, 1))[0]
+    col, row = kb.separable_factors(kflip)
+    assert col.dtype == row.dtype == np.float32
+    err = np.abs(np.outer(col.astype(np.float64), row) - kflip).max()
+    assert err <= np.spacing(np.abs(kflip).max())
+    assert kb.blur_taps(kflip, (1, 1)).factors is not None
+
+
+def test_rank2_taps_take_the_general_path():
+    assert np.linalg.matrix_rank(RANK2) == 2
+    assert kb.separable_factors(RANK2) is None
+    assert kb.separable_factors(np.zeros((4, 4), np.float32)) is None
+    taps = kb.blur_taps(RANK2, (1, 1))
+    assert taps.factors is None and taps.adjoint.factors is None
+
+
+def _plan_shapes():
+    shapes = []
+    for b in (1, 10, 16):
+        for c, h in chip_smoke.MAIN_SHAPES:
+            shapes.append((b * c, h, h, (1, 1)))      # the forward
+            shapes.append((b * c, h - 1, h - 1, (2, 2)))  # its backward
+    shapes += [(n * c, h, w, pad) for n, c, h, w, pad in
+               chip_smoke.EDGE_CASES]
+    return shapes
+
+
+@pytest.mark.parametrize("planes,h,w,pad", _plan_shapes())
+def test_sep_plan_covers_every_output_once(planes, h, w, pad):
+    """The kernel's thread loops over blocks, warps and segments,
+    transliterated to numpy: the tasks it launches cover every output row
+    of every plane once, and a task's lanes every column once; a launch
+    fits its limits and no segment is mostly idle."""
+    k = 4
+    ho, wo = h + sum(pad) - k + 1, w + sum(pad) - k + 1
+    p = kb._sep_plan(planes, ho, wo)
+    assert p.lanes in (1, 2, 4, 8, 16, 32)
+    assert 1 <= p.chunks <= kb.SEP_MAX_CHUNKS and 1 <= p.rows <= ho
+    nseg = 32 // p.lanes
+    blocks = -(-p.warps // kb.SEP_WARPS)
+    assert blocks < 2 ** 31
+    smem = 4 * kb.SEP_WARPS * 4 * nseg * (4 * p.lanes * p.chunks + 8)
+    assert smem <= 48 * 1024
+    # every segment of every launched warp, as blur2d_sep_kernel numbers it
+    task = np.arange(blocks * kb.SEP_WARPS * nseg)
+    task = task[task < p.tasks]
+    assert task.size == p.tasks
+    span = task % p.spans
+    band = (task // p.spans) % p.bands
+    plane = task // (p.spans * p.bands)
+    assert plane.max() == planes - 1
+    oy0 = band * p.rows
+    oy_end = np.minimum(oy0 + p.rows, ho)
+    rows = np.zeros((planes * p.spans, ho + 1), np.int64)
+    np.add.at(rows, (plane * p.spans + span, oy0), 1)
+    np.add.at(rows, (plane * p.spans + span, oy_end), -1)
+    assert (np.cumsum(rows, axis=1)[:, :ho] == 1).all()
+    sl, m, q = np.meshgrid(np.arange(p.lanes), np.arange(p.chunks),
+                           np.arange(4), indexing="ij")
+    cols = (np.arange(p.spans)[:, None] * 4 * p.lanes * p.chunks
+            + (4 * (sl + p.lanes * m) + q).ravel()[None, :]).ravel()
+    np.testing.assert_array_equal(np.bincount(cols[cols < wo],
+                                              minlength=wo), 1)
+    assert 2 * wo > 4 * p.lanes * p.chunks * p.spans
+
+
+def _separable_order(x, col, row, pad):
+    """The kernel's sums in plain float32: pad (negative crops), each input
+    row filtered by `row` (j = 0..k-1), then each output the sum over the
+    window of k filtered rows by `col` (i = 0..k-1)."""
+    k = len(col)
+    xp = torch.nn.functional.pad(x, (pad[0], pad[1], pad[0], pad[1]))
+    ho, wo = xp.shape[2] - k + 1, xp.shape[3] - k + 1
+    hrow = torch.zeros(xp.shape[:3] + (wo,))
+    for j in range(k):
+        hrow = hrow + float(row[j]) * xp[:, :, :, j:j + wo]
+    out = torch.zeros(xp.shape[:2] + (ho, wo))
+    for i in range(k):
+        out = out + float(col[i]) * hrow[:, :, i:i + ho, :]
+    return out
+
+
+@pytest.mark.parametrize("shape,taps,gain,pad", BLUR_CASES, ids=BLUR_IDS)
+def test_separable_order_matches_reference_and_pallas(shape, taps, gain,
+                                                      pad):
+    """Rows, then columns, with the factors the wrapper hands the kernel,
+    against blur2d_reference and K2a (blur2d_pallas, interpret mode):
+    1e-5 abs (fp32, the sums in another order)."""
+    x, kern = _case(shape, taps, gain)
+    kflip = np.ascontiguousarray(np.flip(kern, (0, 1)))
+    col, row = kb.blur_taps(kflip, pad).factors
+    got = _nhwc(_separable_order(_nchw(x), col, row, pad))
+    np.testing.assert_allclose(got, _port_blur(x, kern, pad), atol=1e-5,
+                               rtol=0)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(blur2d_pallas(jnp.asarray(x), kern, pad))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _fake_launches(monkeypatch):
+    """Replace the launch by the plain version and zero the counters;
+    returns the list of (taps object, pad) each launch was given."""
+    seen = []
+
+    def fake_launch(x, taps, pad):
+        seen.append((taps, tuple(pad)))
+        return blur2d_reference(x, taps, pad)
+    monkeypatch.setattr(kb, "_launch", fake_launch)
+    for name in ("launches", "backward_launches", "general_launches"):
+        monkeypatch.setattr(kb, name, 0)
+    return seen
+
+
+def test_model_taps_launch_the_separable_path(monkeypatch):
+    """The model's blur (its layer's prepared taps, gain 4, pad (1, 1)):
+    the forward and the backward each launch once, both on the separable
+    path, with the adjoint's taps on the backward; the gradient equals
+    autograd's."""
+    seen = _fake_launches(monkeypatch)
+    taps = layer_taps(make_kernel([1, 3, 3, 1]), (1, 1), 2)
+    x = np.random.RandomState(5).randn(2, 4, 17, 17).astype(np.float32)
+    g = np.random.RandomState(6).randn(2, 4, 16, 16).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    kb.Blur2dFunction.apply(xt, taps, taps.pad).backward(torch.from_numpy(g))
+    assert (kb.launches, kb.backward_launches, kb.general_launches) == \
+        (1, 1, 0)
+    assert seen[0] == (taps, (1, 1)) and seen[1] == (taps.adjoint, (2, 2))
+    assert all(t.factors is not None for t, _ in seen)
+    x2 = torch.from_numpy(x).requires_grad_(True)
+    blur2d_reference(x2, taps.kflip, (1, 1)).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), x2.grad.numpy(), atol=1e-5,
+                               rtol=0)
+
+
+def test_rank2_taps_count_general_launches(monkeypatch):
+    """Taps that are not rank 1 launch the general kernel, forward and
+    backward, and count there as well as in the totals."""
+    seen = _fake_launches(monkeypatch)
+    x = torch.from_numpy(
+        np.random.RandomState(7).randn(1, 3, 9, 9).astype(np.float32))
+    y = blur2d_cuda(x, RANK2, (1, 1))
+    kb.blur2d_backward_cuda(torch.ones_like(y), RANK2, (1, 1))
+    assert (kb.launches, kb.backward_launches, kb.general_launches) == \
+        (1, 1, 2)
+    assert all(t.factors is None for t, _ in seen)
+    np.testing.assert_allclose(y.numpy(), blur2d_reference(x, RANK2, (1, 1))
+                               .numpy(), atol=1e-6, rtol=0)
+
+
+def test_taps_are_prepared_once():
+    """The cache hands back the same taps object for the same taps and pad
+    (and the model's blur_taps for the same kernel, pad and factor); the
+    adjoint's adjoint is the taps again; another pad is another object."""
+    kern = make_kernel([1, 3, 3, 1])
+    a = layer_taps(kern, (1, 1), 2)
+    assert layer_taps(kern.copy(), (1, 1), 2) is a
+    kflip = np.ascontiguousarray(np.flip(kern * 4, (0, 1)))
+    assert kb.blur_taps(kflip, (1, 1)) is a
+    assert kb.blur_taps(a, (1, 1)) is a
+    assert a.adjoint is a.adjoint and a.adjoint.adjoint is a
+    assert kb.blur_taps(kflip, (2, 1)) is not a
+    np.testing.assert_array_equal(np.asarray(a), kflip)
+    assert not a.kflip.flags.writeable
+
+
+def test_sep_args_mirror_the_source():
+    """SepArgs lays out the fields of ``struct SepArgs`` in
+    csrc/blur2d.cu, in order: ten ints, then the column and row taps."""
+    src = (_build.SOURCE_DIR / "blur2d.cu").read_text()
+    body = re.search(r"struct SepArgs \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype, rest = decl.split(None, 1)
+            names += [(ctype, n.split("[")[0].strip())
+                      for n in rest.split(",")]
+    assert [n for _, n in names] == [f[0] for f in kb.SepArgs._fields_]
+    assert [t for t, _ in names] == ["int"] * 10 + ["float"] * 2
+    assert ctypes.sizeof(kb.SepArgs) == 4 * (10 + 2 * kb.MAX_TAPS)
+
+
+@pytest.mark.parametrize("kflip,pad,shape", [
+    ("model", (1, 1), (2, 8, 17, 17)), ("model", (2, 2), (1, 4, 16, 16)),
+    ("rank2", (1, 1), (1, 3, 9, 9))])
+def test_launch_path_calls_the_launcher(monkeypatch, kflip, pad, shape):
+    """_launch on a tensor that claims to be on the card, with a stand-in
+    library: the separable launcher gets the planned SepArgs, the general
+    one its taps; the record is made once per shape and reused."""
+    calls = []
+
+    class FakeLib:
+        @staticmethod
+        def blur2d_sep_f32(*args):
+            calls.append(("sep",) + args)
+            return 0
+
+        @staticmethod
+        def blur2d_f32(*args):
+            calls.append(("general",) + args)
+            return 0
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+    monkeypatch.setattr(kb, "library", lambda: FakeLib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 77, raising=False)
+    kf = (RANK2 if kflip == "rank2"
+          else _kflip((1, 3, 3, 1), 4.0))
+    taps = kb.blur_taps(kf, pad)
+    x = torch.zeros(shape).as_subclass(FakeCuda)
+    y = kb._launch(x, taps, pad)
+    y2 = kb._launch(x, taps, pad)
+    n, c, h, w = shape
+    want = kb.output_shape(shape, 4, pad)
+    assert tuple(y.shape) == tuple(y2.shape) == want
+    assert len(taps.records) == 1 and len(calls) == 2
+    kind, xp, yp, *args, stream = calls[0]
+    assert (xp, stream) == (x.data_ptr(), 77) and yp == y.data_ptr()
+    if kflip == "rank2":
+        assert kind == "general"
+        assert args == [n * c, h, w, want[2], want[3], pad[0], 4,
+                        taps.taps_ptr]
+        return
+    assert kind == "sep"
+    sep = taps.records[(x.shape, pad)][3]
+    assert args == [ctypes.addressof(sep)]
+    plan = kb._sep_plan(n * c, want[2], want[3])
+    assert (sep.planes, sep.h, sep.w, sep.ho, sep.wo, sep.pad0, sep.k) == \
+        (n * c, h, w, want[2], want[3], pad[0], 4)
+    assert (sep.lanes, sep.chunks, sep.rows) == tuple(plan[:3])
+    col, row = taps.factors
+    np.testing.assert_array_equal(np.array(sep.col[:4], np.float32), col)
+    np.testing.assert_array_equal(np.array(sep.row[:4], np.float32), row)
