@@ -15,7 +15,8 @@ set to 0 just before it and read just after:
 - the edit loop of the paper: the 1000-z key statistics at layer 8, the
   ``dome2tree`` edit request (rank 1, 2001 Adam steps), edited renders,
   revert (the FIR blur K2);
-- the 2x upsample op ``upsample2d`` on wide maps (K3);
+- the 2x upsample op ``upsample2d`` on wide maps (K3), which no model
+  path reaches;
 - church-256 sampling through ``sample_clean`` and ``pipeline_fast`` in
   the three modes of K1's gate (off, the default; on, which takes the
   256-pixel layer; on with ``min_res=0``, all six up-conv layers), and the
@@ -28,7 +29,10 @@ K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
 that are not; both are held against the plain version, forward and
 backward, and the edit loop, sampling, ``sample_edited`` and the layer-7
-edit must launch the general one no time.
+edit must launch the general one no time.  K3 likewise has a separable
+polyphase kernel, which ``upsample2d`` must take, and a general one, held
+on a rank-2 kernel; it is timed at each of ``UP2_SHAPES``, in turns with
+the general kernel.
 
 Weights are random, drawn from a seed.  Every phase prints one line with
 its elapsed seconds; any failure raises and exits non-zero.  The
@@ -213,6 +217,30 @@ def up2_library(torch, x, kernel):
                                                 padding=1, groups=c)
 
 
+def up2_bound_ms(x_shape, k: int):
+    """Least time for K3: each input read once, each (2H, 2W) output
+    written once, at the memory rate; or about k FMAs an output (k/2
+    along each axis, the taps being separable) at the fp32 peak."""
+    nx = 1
+    for d in x_shape:
+        nx *= d
+    return bound_ms(4.0 * 5 * nx, 2.0 * k * 4 * nx)
+
+
+def general_up2(torch, kup2, x, taps):
+    """K3's general kernel on any taps, its launcher called straight
+    (uncounted), to hold it against the plain version where the wrapper
+    would take the separable kernel."""
+    n, c, h, w = x.shape
+    y = torch.empty((n, c, 2 * h, 2 * w), device=x.device)
+    rc = kup2.library().upsample2x_f32(
+        x.data_ptr(), y.data_ptr(), n * c, h, w, taps.pad[0], taps.k,
+        taps.taps_ptr, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"general upsample2x kernel: CUDA error {rc}")
+    return y
+
+
 def rank2_kflip(np):
     """A 4x4 blur whose taps are not rank 1 (the sum of two outer
     products): the general kernel's case."""
@@ -235,6 +263,118 @@ def general_blur(torch, kblur, x, taps):
     if rc != 0:
         raise RuntimeError(f"general blur2d kernel: CUDA error {rc}")
     return y
+
+
+def check_upsample2x(torch, np, gen) -> dict:
+    """K3 on the card: both kernels against the plain version at
+    ``UP2_SHAPES`` and ``UP2_EDGES`` (make_kernel taps, which must take
+    the separable kernel) and on two rank-2 kernels (the general one);
+    the times at each of ``UP2_SHAPES``, the general kernel and the
+    separable one in turns; then ``upsample2d`` on the wide maps, which
+    must launch the separable kernel once each.  Returns K3's entry of
+    the kernels line; raises on any failure."""
+    from rewriting_torch.ops import make_kernel
+    from rewriting_torch.ops import upsample2x as kup2
+    from rewriting_torch.ops.upfirdn2d import upsample2d
+
+    rank2 = rank2_kflip(np)
+    max_err = gen_err = 0.0
+    up2_rows = []
+    cases = []
+    for n, c, h, w, taps in [s + ((1, 3, 3, 1),) for s in UP2_SHAPES] + \
+            list(UP2_EDGES):
+        kern = make_kernel(list(taps)) * 4.0
+        k = kern.shape[0]
+        p = k - 2
+        pad = ((p + 1) // 2 + 1, p // 2)
+        cases.append((n, c, h, w, np.ascontiguousarray(np.flip(kern, (0, 1))),
+                      pad, kern))
+    cases += [(1, 64, 12, 20, rank2, (2, 1), None),
+              (16, 128, 32, 32, rank2, (2, 1), None)]
+    kup2.launches = kup2.general_launches = 0
+    for n, c, h, w, kflip, pad, kern in cases:
+        x = torch.randn((n, c, h, w), generator=gen, device="cuda")
+        taps = kup2.up2_taps(kflip, pad)
+        got = kup2.upsample2x_cuda(x, taps, pad)
+        want = kup2.upsample2x_reference(x, taps, pad)
+        general = general_up2(torch, kup2, x, taps)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        gerr = float((general - want).abs().max())
+        max_err, gen_err = max(max_err, err), max(gen_err, gerr)
+        path = "general" if taps.phases is None else "separable"
+        print(f"upsample2x {(n, c, h, w)} k{taps.k} pad {pad} -> "
+              f"{tuple(got.shape)}: {path} kernel max abs diff {err:.3e}, "
+              f"general kernel {gerr:.3e}")
+        if tuple(got.shape) != (n, c, 2 * h, 2 * w) or \
+                not max(err, gerr) <= UP2_TOL:
+            raise AssertionError(f"upsample2x kernels differ from their "
+                                 f"plain version by {err}, {gerr}")
+        if (kern is None) != (taps.phases is None):
+            raise AssertionError(f"upsample2x took the {path} kernel for "
+                                 f"{'rank-2' if kern is None else 'rank-1'} "
+                                 "taps")
+        if (n, c, h, w) in UP2_SHAPES and kern is not None:
+            lib = up2_library(torch, x, kern)
+            lerr = float((lib - want).abs().max())
+            if not lerr <= UP2_TOL:
+                raise AssertionError(f"conv_transpose2d yardstick differs "
+                                     f"by {lerr}")
+            del lib
+            # the general kernel and the separable one in turns
+            t = [time_ms(torch, f) for f in (
+                lambda: general_up2(torch, kup2, x, taps),
+                lambda: kup2.upsample2x_cuda(x, taps, pad),
+                lambda: kup2.upsample2x_cuda(x, taps, pad),
+                lambda: general_up2(torch, kup2, x, taps))]
+            p_ms = time_ms(torch, lambda: kup2.upsample2x_reference(
+                x, taps, pad))
+            l_ms = time_ms(torch, lambda: up2_library(torch, x, kern))
+            bound, by = up2_bound_ms(x.shape, taps.k)
+            up2_rows.append({"shape": [n, c, h, w], "ms": (t[1] + t[2]) / 2,
+                             "ms_turns": t[1:3], "general_ms": (t[0] + t[3])
+                             / 2, "general_ms_turns": t[::3],
+                             "plain_ms": p_ms, "library_ms": l_ms,
+                             "bound_ms": bound, "bound_by": by})
+            print(f"upsample2x time {(n, c, h, w)}: separable kernel "
+                  f"(upsample2x_cuda) {t[1]:.4f} / {t[2]:.4f} ms, general "
+                  f"kernel {t[0]:.4f} / {t[3]:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"conv_transpose2d depthwise {l_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by})")
+        del x, got, want, general
+    print(f"upsample2x launches on the checks: {kup2.launches}, of the "
+          f"general kernel {kup2.general_launches} (the rank-2 cases)")
+    if kup2.general_launches != 2:
+        raise AssertionError("the rank-2 checks did not launch K3's general "
+                             "kernel")
+    print(json.dumps({"upsample2x_rows": up2_rows}))
+    # the path: the public op upsample2d on the wide maps
+    maps = [torch.randn(s, generator=gen, device="cuda") for s in UP2_SHAPES]
+    kup2.launches = kup2.general_launches = 0
+    outs = [upsample2d(m, make_kernel(list(BLUR_TAPS))) for m in maps]
+    up2_launches, up2_general = kup2.launches, kup2.general_launches
+    torch.cuda.synchronize()
+    print(f"upsample2x launches on ops.upsample2d over {len(maps)} wide "
+          f"maps: {up2_launches}, of the general kernel {up2_general}")
+    if up2_launches != len(maps):
+        raise AssertionError("upsample2d did not launch K3 on wide maps")
+    if up2_general != 0:
+        raise AssertionError("upsample2d launched K3's general kernel")
+    del maps, outs
+    head = up2_rows[-1]
+    return {
+        "name": "upsample2x", "route": "cuda",
+        "source": "rewriting_torch/csrc/upsample2x.cu",
+        "replaces": "rewriting_tpu/ops/pallas_upfirdn.py:162 "
+                    "(upsample2x_pallas :150)",
+        "path": "rewriting_torch.ops.upfirdn2d.upsample2d on maps of >= 64 "
+                "channels", "launches": up2_launches,
+        "general_launches": up2_general, "max_abs_err": max_err,
+        "general_max_abs_err": gen_err, "at": head["shape"],
+        "ms": head["ms"], "general_ms": head["general_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "rows": up2_rows}
 
 
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
@@ -500,7 +640,9 @@ def main() -> int:
     # 5. the edit loop (main path of slice 1) ----------------------------------
     t0 = time.time()
     kblur.launches = kblur.general_launches = 0
+    kup2.launches = kup2.general_launches = 0
     loop = run_edit_loop(model, params, niter=2001)
+    k3_on_models = [kup2.launches, kup2.general_launches]
     kernels["blur2d"]["launches"] = kblur.launches
     kernels["blur2d"]["general_launches"] = kblur.general_launches
     print(json.dumps({"edit_loop": loop}))
@@ -691,69 +833,9 @@ def main() -> int:
         "backward_bound_by": head["bound_by"]})
     phase("7 K2 backward vs autograd", t0)
 
-    # 8. K3 vs plain version, then the upsample2d path -------------------------------
+    # 8. K3 vs plain version, both kernels, then the upsample2d path --------
     t0 = time.time()
-    max_err = 0.0
-    up2_rows = []
-    for n, c, h, w, taps in [s + ((1, 3, 3, 1),) for s in UP2_SHAPES] + \
-            list(UP2_EDGES):
-        kern = make_kernel(list(taps)) * 4.0
-        k = kern.shape[0]
-        p = k - 2
-        pad = ((p + 1) // 2 + 1, p // 2)
-        kflip = np.ascontiguousarray(np.flip(kern, (0, 1)))
-        x = torch.randn((n, c, h, w), generator=gen, device="cuda")
-        got = kup2.upsample2x_cuda(x, kflip, pad)
-        want = kup2.upsample2x_reference(x, kflip, pad)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        print(f"upsample2x {(n, c, h, w)} k{k} pad {pad} -> "
-              f"{tuple(got.shape)}: max abs diff {err:.3e}")
-        if tuple(got.shape) != (n, c, 2 * h, 2 * w) or not err <= UP2_TOL:
-            raise AssertionError(f"upsample2x differs from its plain "
-                                 f"version by {err}")
-        if (n, c, h, w) in UP2_SHAPES:
-            lib = up2_library(torch, x, kern)
-            lerr = float((lib - want).abs().max())
-            if not lerr <= UP2_TOL:
-                raise AssertionError(f"conv_transpose2d yardstick differs "
-                                     f"by {lerr}")
-            k_ms = time_ms(torch, lambda: kup2.upsample2x_cuda(x, kflip, pad))
-            p_ms = time_ms(torch, lambda: kup2.upsample2x_reference(
-                x, kflip, pad))
-            l_ms = time_ms(torch, lambda: up2_library(torch, x, kern))
-            bound, by = bound_ms(4.0 * 5 * x.numel(), 2.0 * 4 * 4 * x.numel())
-            up2_rows.append({"shape": [n, c, h, w], "ms": k_ms,
-                             "plain_ms": p_ms, "library_ms": l_ms,
-                             "bound_ms": bound, "bound_by": by})
-            print(f"upsample2x time {(n, c, h, w)}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, conv_transpose2d depthwise "
-                  f"{l_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-            del lib
-        del x, got, want
-    # the path: the public op upsample2d on the wide maps
-    maps = [torch.randn(s, generator=gen, device="cuda") for s in UP2_SHAPES]
-    kup2.launches = 0
-    outs = [upsample2d(m, make_kernel(list(BLUR_TAPS))) for m in maps]
-    up2_launches = kup2.launches
-    torch.cuda.synchronize()
-    print(f"upsample2x launches on ops.upsample2d over {len(maps)} wide "
-          f"maps: {up2_launches}")
-    if up2_launches != len(maps):
-        raise AssertionError("upsample2d did not launch K3 on wide maps")
-    del maps, outs
-    head = up2_rows[-1]
-    kernels["upsample2x"] = {
-        "name": "upsample2x", "route": "cuda",
-        "source": "rewriting_torch/csrc/upsample2x.cu",
-        "replaces": "rewriting_tpu/ops/pallas_upfirdn.py:162 "
-                    "(upsample2x_pallas :150)",
-        "path": "rewriting_torch.ops.upfirdn2d.upsample2d on maps of >= 64 "
-                "channels", "launches": up2_launches, "max_abs_err": max_err,
-        "at": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}
+    kernels["upsample2x"] = check_upsample2x(torch, np, gen)
     phase("8 K3 vs plain version, upsample2d path", t0)
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -761,6 +843,7 @@ def main() -> int:
         # 9. sampling: pipeline_fast (K1) vs seq, then sample_clean in the
         # three gate modes ---------------------------------------------------
         t0 = time.time()
+        kup2.launches = kup2.general_launches = 0
         z16 = standard_z_sample(16, 512, seed=2)
         kup.set_fused_upconv("on", min_res=0)
         kup.launches = 0
@@ -885,6 +968,15 @@ def main() -> int:
     if kblur.general_launches != 0:
         raise AssertionError("the layer-7 edit launched the general blur "
                              "kernel")
+    # K3 has no model path: nothing of phases 5 and 9-11 launches it
+    k3_on_models[0] += kup2.launches
+    k3_on_models[1] += kup2.general_launches
+    kernels["upsample2x"]["model_path_launches"] = k3_on_models
+    print(f"upsample2x launches on the edit loop, sampling, sample_edited "
+          f"and the layer-7 edit: {k3_on_models[0]}, of the general kernel "
+          f"{k3_on_models[1]}")
+    if k3_on_models[1] != 0:
+        raise AssertionError("a model path launched K3's general kernel")
     phase("11 edit at layer 7", t0)
 
     # 12. kernels line, 13. result -------------------------------------------------

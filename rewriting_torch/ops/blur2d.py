@@ -181,13 +181,16 @@ class SepPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _sep_plan(planes: int, ho: int, wo: int) -> SepPlan:
+def _sep_plan(planes: int, ho: int, wo: int, min_rows: int = 8,
+              target_warps=SEP_TARGET_WARPS) -> SepPlan:
     """The separable kernel's cut of ``planes`` output planes (ho, wo):
     the fewest lanes whose 4 columns each cover a row (a warp then takes
     several narrow planes), up to 32 lanes and 3 chunks a lane, then wider
-    rows in spans; bands of the whole plane, halved down to 8 rows while
-    the launch has fewer than SEP_TARGET_WARPS warps (each band reads
-    k - 1 halo rows again)."""
+    rows in spans; bands of the whole plane, halved down to `min_rows`
+    rows while the launch has fewer than `target_warps` warps (each band
+    reads k - 1 halo rows again; None: halved down to `min_rows` at any
+    size).  K3's separable kernel cuts its input planes the same way
+    (``ops/upsample2x.py::sep_plan``)."""
     lanes = 1
     while 4 * lanes < wo and lanes < 32:
         lanes *= 2
@@ -201,7 +204,8 @@ def _sep_plan(planes: int, ho: int, wo: int) -> SepPlan:
         return SepPlan(lanes, chunks, rows, bands, spans, tasks,
                        -(-tasks // per_warp))
     plan = cut(ho)
-    while plan.rows > 8 and plan.warps < SEP_TARGET_WARPS:
+    while plan.rows > min_rows and (target_warps is None
+                                    or plan.warps < target_warps):
         plan = cut(-(-plan.rows // 2))
     return plan
 

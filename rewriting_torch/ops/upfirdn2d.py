@@ -14,12 +14,13 @@ Layout: NCHW; the FIR kernel is shared by all channels (depthwise).
 ``upfirdn2d`` is plain PyTorch.  ``upsample2d`` sends maps of 64 or more
 channels (a multiple of 8) whose output is exactly 2x to the polyphase
 upsample of ``ops/upsample2x.py`` (K3), as the JAX package does
-(:221-224); narrower maps, such as the model's 3-channel RGB skip, stay on
-``upfirdn2d``.  ``blur2d`` and K3 dispatch on the tensor's device: a CPU
-tensor takes the plain version, a CUDA tensor the hand-written kernel
-(``ops/blur2d.py``, K2, with its backward for a tensor that requires a
-gradient).  ``blur_taps`` prepares a blur's taps once and ``apply_blur``
-runs them, the short path the model's layers take.
+(:221-224), with its taps prepared once (``upsample_taps``); narrower
+maps, such as the model's 3-channel RGB skip, stay on ``upfirdn2d``.
+``blur2d`` and K3 dispatch on the tensor's device: a CPU tensor takes the
+plain version, a CUDA tensor the hand-written kernel (``ops/blur2d.py``,
+K2, with its backward for a tensor that requires a gradient).
+``blur_taps`` prepares a blur's taps once and ``apply_blur`` runs them, the
+short path the model's layers take.
 """
 
 from __future__ import annotations
@@ -63,21 +64,35 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 def upsample2d(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
     """FIR upsample (reference Upsample): gain factor**2, pad
-    ((p+1)//2 + factor - 1, p//2) with p = kh - factor."""
-    kernel = np.asarray(kernel, np.float32) * (factor ** 2)
+    ((p+1)//2 + factor - 1, p//2) with p = kh - factor (for factor 2 the
+    output is always exactly 2x)."""
+    kernel = np.asarray(kernel, np.float32)
     kh = kernel.shape[0]
     p = kh - factor
     pad = ((p + 1) // 2 + factor - 1, p // 2)
     c = x.shape[1]
     if (factor == 2 and c >= 64 and c % 8 == 0 and kernel.shape == (kh, kh)
-            and kh <= _up2.MAX_TAPS and _up2.is_2x(kh, pad)):
-        kflip = np.ascontiguousarray(np.flip(kernel, (0, 1)))
+            and kh <= _up2.MAX_TAPS):
+        taps = upsample_taps(kernel, pad)
         if x.device.type == "cuda":
-            return _up2.upsample2x_cuda(x, kflip, pad)
+            return _up2.upsample2x_cuda(x, taps, pad)
         if x.device.type == "cpu":
-            return _up2.upsample2x_reference(x, kflip, pad)
+            return _up2.upsample2x_reference(x, taps, pad)
         raise RuntimeError(f"upsample2d has no path for device {x.device}")
-    return upfirdn2d(x, kernel, up=factor, down=1, pad=pad)
+    return upfirdn2d(x, kernel * (factor ** 2), up=factor, down=1, pad=pad)
+
+
+def upsample_taps(kernel, pad: Tuple[int, int]) -> _up2.Up2Taps:
+    """The prepared taps of K3 for the 2x upsample (``kernel * 4``,
+    flipped) with ``pad``: made once per kernel and pad."""
+    k = np.ascontiguousarray(kernel, np.float32)
+    return _up2_scaled_taps(k.tobytes(), k.shape, (int(pad[0]), int(pad[1])))
+
+
+@functools.lru_cache(maxsize=None)
+def _up2_scaled_taps(data: bytes, shape, pad) -> _up2.Up2Taps:
+    kernel = np.frombuffer(data, np.float32).reshape(shape) * 4.0
+    return _up2.up2_taps(np.flip(kernel, (0, 1)), pad)
 
 
 def blur_taps(kernel, pad: Tuple[int, int], upsample_factor: int = 1
