@@ -23,13 +23,24 @@ set to 0 just before it and read just after:
   port's PNG files decoded against a direct render;
 - ``sample_edited``: the dome2tree edit, then 32 samples of the edited
   model;
-- an edit at the upsampling layer 7, whose solve runs K2's backward.
+- an edit at the upsampling layer 7, whose solve runs K2's backward;
+- a checkpoint file: the params written under rosinality's key names as
+  ``stylegan2_church.pt`` in a temporary directory, loaded back through
+  ``models/zoo.py`` bit for bit, then the two command lines
+  ``python3 -m rewriting_torch.metrics.sample --dataset church --n 32``
+  and ``python3 -m rewriting_torch.metrics.sample_edited --mask dome2tree
+  --n 16``, each in its own process, on that file;
+- the server's solves at layer 7 on the dome2tree goal: ``insert`` and
+  ``linear_insert`` (201 steps) and ``fast_linear_insert`` (2001), their
+  seconds a step, the fast and the direct Λ·D solve held together;
+- at layer 8, ``apply_erase``, ``zero``, the svd and mean keys, the
+  renders (plain, with the query key outlined, an object with its box),
+  and 201-step edits in the Pre and Tiny windows.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
 that are not; both are held against the plain version, forward and
-backward, and the edit loop, sampling, ``sample_edited`` and the layer-7
-edit must launch the general one no time.  K3 likewise has a separable
+backward, and no path may launch the general one.  K3 likewise has a separable
 polyphase kernel, which ``upsample2d`` must take, and a general one, held
 on a rank-2 kernel; it is timed at each of ``UP2_SHAPES``, in turns with
 the general kernel.
@@ -68,6 +79,10 @@ UPCONV_RTOL = 1e-5     # K1 vs plain, of max |plain| (tests/test_pallas.py)
 UP2_TOL = 1e-5         # K3 vs plain version, absolute
 FORWARD_RTOL = 1e-4    # card vs CPU forward and fast vs seq, of max |ref|
 SPAN_TOL = 1e-4        # weight change outside span(D), relative
+# the fast and the direct linear insert's first 201 losses, absolute: the
+# same Λ·D trajectory with the conv split by linearity (measured 1.2e-7 on
+# an H100 at layer 7, 4.5e-8 on the CPU at 32 px)
+FAST_LINEAR_TOL = 1e-5
 
 BLUR_TAPS = (1, 3, 3, 1)
 # (C, H) of the blur inputs on the church-256 path: after the up-convs of
@@ -377,12 +392,392 @@ def check_upsample2x(torch, np, gen) -> dict:
         "rows": up2_rows}
 
 
+def rosinality_checkpoint(model, params) -> dict:
+    """``{"g_ema": state dict, "latent_avg": ...}`` of the port's params
+    under rosinality's key names, FIR buffers and ``noises.*`` included: the
+    inverse of ``models.stylegan2._seq_names_from_rosinality``, as a
+    published checkpoint file holds it.  CPU tensors."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.ops import make_kernel
+
+    def cpu(t):
+        return t.detach().cpu().clone()
+
+    # rosinality keeps the FIR of an up-conv and of the rgb upsample as
+    # make_kernel(blur_kernel) times the factor squared
+    fir = torch.from_numpy(np.array(make_kernel(model.blur_kernel) * 4.0,
+                                    np.float32))
+    sd = {}
+    for i in range(1, model.n_mlp + 1):
+        for name in ("weight", "bias"):
+            sd[f"style.{i}.{name}"] = cpu(params[f"style.{i}"][name])
+    sd["input.input"] = cpu(params["input"]["input"])
+    for name, buf in params["noises"].items():
+        sd[f"noises.{name}"] = cpu(buf)
+    for n in range(2, model.num_layers + 2):
+        prefix = "layer2.conv" if n == 2 else f"layer{n}.sconv"
+        head = "conv1" if n == 2 else f"convs.{n - 3}"
+        sd[f"{head}.conv.weight"] = cpu(params[f"{prefix}.mconv.dconv"]
+                                        ["weight"])
+        for name in ("weight", "bias"):
+            sd[f"{head}.conv.modulation.{name}"] = cpu(
+                params[f"{prefix}.mconv.modulation"][name])
+        if n % 2 == 1:
+            sd[f"{head}.conv.blur.kernel"] = fir.clone()
+        sd[f"{head}.noise.weight"] = cpu(params[f"{prefix}.noise"]["weight"])
+        sd[f"{head}.activate.bias"] = cpu(params[f"{prefix}.activate"]
+                                          ["bias"])
+    for j in range(1, model.log_size):
+        rgb = params[f"to_rgb{j}.rgb"]
+        head = "to_rgb1" if j == 1 else f"to_rgbs.{j - 2}"
+        if j > 1:
+            sd[f"{head}.upsample.kernel"] = fir.clone()
+        sd[f"{head}.conv.weight"] = cpu(rgb["weight"])
+        for name in ("weight", "bias"):
+            sd[f"{head}.conv.modulation.{name}"] = cpu(
+                rgb["modulation"][name])
+        sd[f"{head}.bias"] = cpu(rgb["bias"]).reshape(1, 3, 1, 1)
+    return {"g_ema": sd,
+            "latent_avg": cpu(params["latents"]["latent_avg"])}
+
+
+# runs a module's command line as ``python3 -m`` does, then prints the
+# kernels' launch counts of that process as one JSON line
+CLI_WRAPPER = """
+import json, runpy, sys
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+from rewriting_torch.ops import blur2d, upconv_blur, upsample2x
+print("launches " + json.dumps({
+    "k2": blur2d.launches, "k2_backward": blur2d.backward_launches,
+    "k2_general": blur2d.general_launches, "k1": upconv_blur.launches,
+    "k3": upsample2x.launches}))
+"""
+
+
+def run_cli(module: str, args, cwd: str, env: dict) -> dict:
+    """Run ``python3 -m module args`` (through CLI_WRAPPER) in `cwd`;
+    returns its wall time and launch counts; raises if it fails."""
+    t1 = time.time()
+    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, module]
+                          + list(args), cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.time() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m {module} {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    counts = [line for line in proc.stdout.splitlines()
+              if line.startswith("launches ")]
+    print(f"python3 -m {module} {' '.join(args)}: {wall:.3f} s wall")
+    return {"wall_s": wall, **json.loads(counts[-1][len("launches "):])}
+
+
+def _decode(np, path):
+    from rewriting_torch.utils.renormalize import decode_png
+    with open(path, "rb") as f:
+        return decode_png(f.read()).astype(np.int16)
+
+
+def check_checkpoint_and_command_lines(model, params, workdir: str) -> dict:
+    """Phase 12: write the params as a rosinality checkpoint (with the mean
+    W of 4096 z as latent_avg), load it back through the zoo bit for bit,
+    then run the two samplers' command lines on it in `workdir`, each in
+    its own process: 32 clean images, and the dome2tree edit with 16
+    edited images.  Returns the phase's numbers; raises on any failure."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.metrics.sample import per_image_z
+    from rewriting_torch.models.zoo import load_seq_stylegan
+    from rewriting_torch.utils.renormalize import mask_from_url, renormalize
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    mapping = model.pipeline.subsequence(upto_layer="latents")
+    with torch.no_grad():
+        w = mapping(params, model.make_bag(standard_z_sample(4096, 512,
+                                                             seed=3)))
+    written = dict(params)
+    written["latents"] = {"latent_avg": w["latent"].mean(0)}
+    weights = os.path.join(workdir, "weights")
+    os.makedirs(weights)
+    path = os.path.join(weights, "stylegan2_church.pt")
+    t1 = time.time()
+    torch.save(rosinality_checkpoint(model, written), path)
+    save_s = time.time() - t1
+    old = os.environ.get("REWRITING_TPU_WEIGHTS")
+    os.environ["REWRITING_TPU_WEIGHTS"] = weights
+    try:
+        t1 = time.time()
+        loaded_model, loaded = load_seq_stylegan("church", truncation=0.5)
+        load_s = time.time() - t1
+    finally:
+        if old is None:
+            del os.environ["REWRITING_TPU_WEIGHTS"]
+        else:
+            os.environ["REWRITING_TPU_WEIGHTS"] = old
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+    got, want = dict(leaves(loaded)), dict(leaves(written))
+    if got.keys() != want.keys():
+        raise AssertionError("the loaded params have other names")
+    for k in got:
+        if got[k].device != want[k].device or \
+                not torch.equal(got[k], want[k]):
+            raise AssertionError(f"loaded param {k} differs from the file's")
+    mb = os.path.getsize(path) / 2 ** 20
+    print(f"rosinality checkpoint {mb:.1f} MiB: saved in {save_s:.3f} s, "
+          f"loaded by the zoo (truncation 0.5) in {load_s:.3f} s, "
+          f"{len(got)} tensors bit for bit")
+
+    env = dict(os.environ, REWRITING_TPU_WEIGHTS=weights,
+               REWRITING_TPU_MASKS=MASKS,
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli = os.path.join(workdir, "cli")
+    os.makedirs(cli)
+    clean = run_cli("rewriting_torch.metrics.sample",
+                    ["--dataset", "church", "--n", "32"], cli, env)
+    clean_dir = os.path.join(cli, "results", "samples", "church_clean")
+    pngs = [n for n in os.listdir(clean_dir) if n.endswith(".png")]
+    if not os.path.isfile(os.path.join(clean_dir, "done.txt")) or \
+            len(pngs) != 32:
+        raise AssertionError(f"sample wrote {len(pngs)} images, done marker "
+                             f"{os.path.isfile(clean_dir + '/done.txt')}")
+    direct = renormalize(np.clip(loaded_model(loaded, per_image_z(
+        loaded_model, [3]))[0].cpu().numpy(), -1, 1), "zc", "byte")
+    lsb = int(np.abs(_decode(np, os.path.join(clean_dir, "3.png"))
+                     - direct.astype(np.int16)).max())
+    print(f"  32 clean PNGs and done.txt; image 3 within {lsb} LSB of a "
+          f"direct render; K2 launches {clean['k2']} (general "
+          f"{clean['k2_general']}), K1 {clean['k1']}")
+    if lsb > 1:
+        raise AssertionError(f"clean image 3 is {lsb} LSB from a direct "
+                             "render")
+    if clean["k2"] <= 0 or clean["k2_general"] != 0:
+        raise AssertionError(f"sample's K2 launches: {clean}")
+
+    edited = run_cli("rewriting_torch.metrics.sample_edited",
+                     ["--mask", "dome2tree", "--n", "16"], cli, env)
+    edited_dir = os.path.join(cli, "results", "samples", "dome2tree")
+    if not os.path.isfile(os.path.join(edited_dir, "done.txt")):
+        raise AssertionError("sample_edited left no done marker")
+    with open(MASK) as f:
+        region = mask_from_url(json.load(f)["paste"][1],
+                               size=(model.size, model.size)) > 0.5
+    inside, outside = [], []
+    for i in range(16):
+        diff = np.abs(_decode(np, os.path.join(edited_dir, f"{i}.png"))
+                      - _decode(np, os.path.join(clean_dir, f"{i}.png")))
+        diff = diff.mean(-1)
+        inside.append(float(diff[region].mean()))
+        outside.append(float(diff[~region].mean()))
+    print(f"  16 edited PNGs and done.txt; mean |edited - clean| inside the "
+          f"paste mask {np.mean(inside):.3f}, outside {np.mean(outside):.3f} "
+          f"(of 255); K2 launches {edited['k2']}, backward "
+          f"{edited['k2_backward']} (general {edited['k2_general']})")
+    if not max(inside) > 0:
+        raise AssertionError("the edited images equal the clean ones inside "
+                             "the mask")
+    if edited["k2_general"] != 0:
+        raise AssertionError(f"sample_edited's K2 launches: {edited}")
+    return {"checkpoint_mib": mb, "save_s": save_s, "load_s": load_s,
+            "sample_cli": clean, "sample_edited_cli": edited,
+            "clean_lsb": lsb, "edited_inside": float(np.mean(inside)),
+            "edited_outside": float(np.mean(outside))}
+
+
+def check_server_solves(rw, kblur, insert: dict, fast_steps: int = 2001,
+                        steps: int = 201) -> dict:
+    """Phase 13: the server's solves on the rewriter of phase 11's edit
+    (`rw`, at layer 7, whose window runs the blur) and on the dome2tree
+    goal, built as apply_edit builds it: ``linear_insert`` for `steps`
+    steps, ``fast_linear_insert`` for `fast_steps`; ``insert`` (the
+    projected Adam) is phase 11's own solve, `insert` its numbers.  Checks
+    the losses fall, the fast solve's first `steps` losses match the
+    direct one's, both changes lie in span(D), and K2's forward and
+    backward run every step.  Returns the seconds per step."""
+    import numpy as np
+
+    from rewriting_torch.rewrite.solve import projected_conv
+
+    with open(MASK) as f:
+        request = json.load(f)
+    rw.revert()
+    obj = rw.object_from_selection(*request["object"])
+    goal_in, goal_out, _, _ = rw.paste_from_selection(*request["paste"],
+                                                      obj[0], obj[2])
+    d = rw.multi_key_from_selection(request["key"], rank=1)
+    w0 = rw.target_weight().clone()
+    out = {"insert": {"steps": insert["steps"],
+                      "s_per_step": insert["solve_ms"] / 1e3
+                      / insert["steps"],
+                      "loss_first": insert["loss_first"],
+                      "loss_last": insert["loss_last"],
+                      "span_rel": insert["span_rel"]}}
+    print(f"layer {insert['layer']} insert (phase 11), {insert['steps']} "
+          f"steps: {insert['solve_ms'] / insert['steps']:.4f} ms a step")
+    losses_of = {}
+    for name, fn, n in (("linear_insert", rw.linear_insert, steps),
+                        ("fast_linear_insert", rw.fast_linear_insert,
+                         fast_steps)):
+        rw.revert()
+        kblur.launches = kblur.backward_launches = kblur.general_launches = 0
+        seen = []
+        losses, ms = fn(goal_in, goal_out, d, niter=n, return_timing=True,
+                        update_callback=lambda i, l: seen.append(i))
+        delta = rw.target_weight() - w0
+        span = float((delta - projected_conv(delta, d)).norm()
+                     / delta.norm())
+        losses_of[name] = losses
+        out[name] = {"steps": n, "s_per_step": ms / 1e3 / n,
+                     "loss_first": float(losses[0]),
+                     "loss_last": float(losses[-1]), "span_rel": span,
+                     "k2": kblur.launches,
+                     "k2_backward": kblur.backward_launches,
+                     "k2_general": kblur.general_launches}
+        print(f"layer {insert['layer']} {name}, {n} steps: {ms / n:.4f} ms "
+              f"a step ({ms / 1e3:.3f} s); loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; change outside span(D) {span:.3e}; K2 "
+              f"launches {kblur.launches} forward, "
+              f"{kblur.backward_launches} backward (general "
+              f"{kblur.general_launches})")
+        if seen != list(range(n)):
+            raise AssertionError(f"{name}: update_callback saw {len(seen)} "
+                                 "steps")
+        if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} did not lower the loss")
+        if not span <= SPAN_TOL:
+            raise AssertionError(f"{name}: the change leaves span(D) by "
+                                 f"{span}")
+        if kblur.launches < n or kblur.backward_launches < n or \
+                kblur.general_launches != 0:
+            raise AssertionError(f"{name}: K2 launched {kblur.launches} "
+                                 f"forward, {kblur.backward_launches} "
+                                 f"backward, general "
+                                 f"{kblur.general_launches} in {n} steps")
+    rw.revert()
+    gap = float(np.abs(losses_of["fast_linear_insert"][:steps]
+                       - losses_of["linear_insert"]).max())
+    print(f"fast vs direct linear insert, first {steps} losses: max abs "
+          f"difference {gap:.3e} (limit {FAST_LINEAR_TOL})")
+    if not gap <= FAST_LINEAR_TOL:
+        raise AssertionError(f"fast and direct linear inserts differ by "
+                             f"{gap}")
+    out["fast_vs_direct_max_abs"] = gap
+    return out
+
+
+def check_erase_keys_renders(model, params, kblur, steps: int = 201,
+                             layernum: int = 8) -> dict:
+    """Phase 14, at `layernum`: apply_erase (drank 30), zero, the svd and mean
+    keys, render_image_batch plain and with the query key's response
+    outlined, render_object with its box, then a `steps`-step apply_edit
+    in the Pre (adain .. activate) and Tiny (dconv) windows."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.rewrite import (SeqPreStyleGanRewriter,
+                                         SeqStyleGanRewriter,
+                                         SeqTinyStyleGanRewriter)
+    from rewriting_torch.rewrite.solve import projected_conv
+    from rewriting_torch.utils.zdataset import z_dataset_for_model
+
+    with open(MASK) as f:
+        request = json.load(f)
+    zds = z_dataset_for_model(model, 1000)
+    size = model.size
+    out = {}
+    def sync():
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    kblur.launches = kblur.general_launches = 0
+    t1 = time.time()
+    rw = SeqStyleGanRewriter(model, params, zds, layernum=layernum,
+                             device=model.device)
+    losses = rw.apply_erase(request, rank=1, drank=30, niter=steps)
+    sync()
+    out["erase_s"] = time.time() - t1
+    out["erase_loss"] = [float(losses[0]), float(losses[-1])]
+    print(f"layer {layernum} apply_erase (drank 30, {steps} steps, the unit scales "
+          f"over 1000 z included): {out['erase_s']:.3f} s; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("apply_erase did not lower the loss")
+    rw.revert()
+    d = rw.multi_key_from_selection(request["key"], rank=1)
+    rw.zero(d)
+    left = float(projected_conv(rw.target_weight(), d).norm())
+    rw.revert()
+    print(f"zero: the weight's component along D is {left:.3e}")
+    if not left <= 1e-4 * float(rw.target_weight().norm()):
+        raise AssertionError(f"zero left {left} along D")
+    for method in ("svd", "mean"):
+        k = rw.multi_key_from_selection(request["key"], rank=1,
+                                        key_method=method)
+        norm = float(k.norm())
+        print(f"{method} key: shape {tuple(k.shape)}, norm {norm:.6f}")
+        if tuple(k.shape) != (1, rw.k_shape[-1]) or abs(norm - 1) > 1e-4:
+            raise AssertionError(f"{method} key is not a unit row")
+    t1 = time.time()
+    plain = rw.render_image_batch(list(range(8)))
+    key = rw.query_key_from_selection(*request["paste"])
+    heat = (rw.context_acts(rw.context_of(request["paste"][0])) * key).sum(-1)
+    level = float(torch.quantile(heat.flatten(), 0.9))
+    lit = rw.render_image_batch(list(range(8)), key=key, level=level)
+    obj = rw.object_from_selection(*request["object"])
+    boxed = rw.render_object(obj[1], box=obj[3])
+    out["render_s"] = time.time() - t1
+    images = plain + lit + [boxed]
+    if any(im.dtype != np.uint8 or im.shape != (size, size, 3)
+           for im in images):
+        raise AssertionError("a render is not uint8 (H, W, 3)")
+    if not (boxed == np.array([255, 0, 0], np.uint8)).all(-1).any():
+        raise AssertionError("render_object drew no red box")
+    print(f"render_image_batch 8 plain + 8 with the query key at level "
+          f"{level:.4f}, render_object with its box: {out['render_s']:.3f} "
+          f"s, all uint8 {images[0].shape}")
+    for name, cls in (("pre", SeqPreStyleGanRewriter),
+                      ("tiny", SeqTinyStyleGanRewriter)):
+        t1 = time.time()
+        var = cls(model, params, zds, layernum=layernum, device=model.device)
+        w0 = var.target_weight().clone()
+        losses = var.apply_edit(request, niter=steps)
+        sync()
+        delta = var.target_weight() - w0
+        span = float((delta - projected_conv(delta, var.multi_key_from_selection(
+            request["key"]))).norm() / delta.norm())
+        out[f"{name}_s"] = time.time() - t1
+        out[f"{name}_loss"] = [float(losses[0]), float(losses[-1])]
+        print(f"Seq{name.capitalize()}StyleGanRewriter ({var.firstlayer}"
+              f" .. {var.lastlayer}): statistics and a {steps}-step "
+              f"apply_edit {out[f'{name}_s']:.3f} s; loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; change outside span(D) {span:.3e}")
+        if not losses[-1] < losses[0] or not span <= SPAN_TOL:
+            raise AssertionError(f"{name} edit: loss {out[f'{name}_loss']}, "
+                                 f"span {span}")
+    out["k2"], out["k2_general"] = kblur.launches, kblur.general_launches
+    if kblur.general_launches != 0:
+        raise AssertionError("phase 14 launched the general blur kernel")
+    return out
+
+
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
                   nrender: int = 8) -> dict:
     """The paper's edit loop through the port's entry points: statistics
-    at `layernum`, the dome2tree request (rank 1, `niter` Adam steps),
-    `nrender` edited renders, revert, renders again.  Checks the loss fell,
-    the weight change lies in span(D) and every output is finite."""
+    at `layernum`, the dome2tree request (rank 1, `niter` Adam steps,
+    timed by the solve itself), `nrender` edited renders, revert, renders
+    again.  Checks the loss fell, every step reached the callback, the
+    weight change lies in span(D) and every output is finite.  Returns
+    (the numbers, the reverted rewriter)."""
     import torch
 
     from rewriting_torch.rewrite import SeqStyleGanRewriter
@@ -403,7 +798,10 @@ def run_edit_loop(model, params, niter: int, layernum: int = 8,
     stats_s = time.time() - t1
     w0 = rw.target_weight().clone()
     t1 = time.time()
-    losses = rw.apply_edit(request, rank=1, niter=niter, piter=10, lr=0.05)
+    seen = []
+    losses, solve_ms = rw.apply_edit(
+        request, rank=1, niter=niter, piter=10, lr=0.05, return_timing=True,
+        update_callback=lambda i, l: seen.append(i))
     sync()
     solve_s = time.time() - t1
     zs = rw.zds.zs[:nrender]
@@ -424,13 +822,16 @@ def run_edit_loop(model, params, niter: int, layernum: int = 8,
     print(f"layer {layernum} statistics (probe + 1000-z second moment + "
           f"ZCA): {stats_s:.3f} s")
     print(f"layer {layernum} edit (keys, goal, {len(losses)}-step solve): "
-          f"{solve_s:.3f} s; loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+          f"{solve_s:.3f} s, of it the solve {solve_ms / 1e3:.3f} s; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
     print(f"render {nrender} samples: {render_s:.3f} s; mean |edited - "
           f"reverted| = {change:.6f}")
     print(f"weight change outside span(D): {span_rel:.3e} of its norm "
           f"(limit {SPAN_TOL})")
     if not losses[-1] < losses[0]:
         raise AssertionError("the solve did not lower the loss")
+    if seen != list(range(niter)):
+        raise AssertionError(f"update_callback saw {len(seen)} steps")
     if not span_rel <= SPAN_TOL:
         raise AssertionError(f"weight change leaves span(D): {span_rel}")
     for name, t in (("losses", torch.as_tensor(losses)), ("weight", w1),
@@ -442,8 +843,9 @@ def run_edit_loop(model, params, niter: int, layernum: int = 8,
         raise AssertionError(f"edited renders {tuple(edited.shape)} did not "
                              f"change (mean change {change})")
     return {"layer": layernum, "stats_s": stats_s, "solve_s": solve_s,
-            "render_s": render_s, "loss_first": float(losses[0]),
-            "loss_last": float(losses[-1]), "span_rel": span_rel}
+            "solve_ms": solve_ms, "steps": niter, "render_s": render_s,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "span_rel": span_rel}, rw
 
 
 def check_sampling(model, params, outdir: str, n: int, batch_size: int,
@@ -641,7 +1043,7 @@ def main() -> int:
     t0 = time.time()
     kblur.launches = kblur.general_launches = 0
     kup2.launches = kup2.general_launches = 0
-    loop = run_edit_loop(model, params, niter=2001)
+    loop, _ = run_edit_loop(model, params, niter=2001)
     k3_on_models = [kup2.launches, kup2.general_launches]
     kernels["blur2d"]["launches"] = kblur.launches
     kernels["blur2d"]["general_launches"] = kblur.general_launches
@@ -955,7 +1357,8 @@ def main() -> int:
     # 11. an edit at the upsampling layer 7: K2's backward ----------------------
     t0 = time.time()
     kblur.launches = kblur.backward_launches = kblur.general_launches = 0
-    loop7 = run_edit_loop(model, params, niter=201, layernum=7, nrender=4)
+    loop7, rw7 = run_edit_loop(model, params, niter=201, layernum=7,
+                               nrender=4)
     kernels["blur2d"]["backward_launches"] = kblur.backward_launches
     kernels["blur2d"]["general_launches"] += kblur.general_launches
     print(json.dumps({"edit_layer7": loop7}))
@@ -979,7 +1382,44 @@ def main() -> int:
         raise AssertionError("a model path launched K3's general kernel")
     phase("11 edit at layer 7", t0)
 
-    # 12. kernels line, 13. result -------------------------------------------------
+    # 12. a checkpoint file, then the samplers' command lines on it ----------
+    t0 = time.time()
+    kup2.launches = kup2.general_launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
+        cli = check_checkpoint_and_command_lines(model, params, workdir)
+    for run in (cli["sample_cli"], cli["sample_edited_cli"]):
+        k3_on_models[0] += run["k3"]
+    kernels["blur2d"]["command_line_launches"] = {
+        "sample": cli["sample_cli"]["k2"],
+        "sample_edited": cli["sample_edited_cli"]["k2"],
+        "sample_edited_backward": cli["sample_edited_cli"]["k2_backward"]}
+    print(json.dumps({"command_lines": cli}))
+    phase("12 checkpoint and command lines", t0)
+
+    # 13. the server's solves at layer 7, on phase 11's rewriter -------------
+    t0 = time.time()
+    solves = check_server_solves(rw7, kblur, loop7)
+    del rw7
+    kernels["blur2d"]["server_solve_launches"] = {
+        name: [solves[name]["k2"], solves[name]["k2_backward"]]
+        for name in ("linear_insert", "fast_linear_insert")}
+    print(json.dumps({"server_solves": solves}))
+    phase("13 server solves at layer 7", t0)
+
+    # 14. erase, keys and renders at layer 8 ----------------------------------
+    t0 = time.time()
+    erase = check_erase_keys_renders(model, params, kblur)
+    kernels["blur2d"]["erase_render_launches"] = erase["k2"]
+    k3_on_models[0] += kup2.launches
+    k3_on_models[1] += kup2.general_launches
+    print(json.dumps({"erase_keys_renders": erase}))
+    print(f"upsample2x launches on phases 12-14: {kup2.launches} in this "
+          f"process, of the general kernel {kup2.general_launches}")
+    if kup2.general_launches != 0:
+        raise AssertionError("phases 12-14 launched K3's general kernel")
+    phase("14 erase, keys and renders", t0)
+
+    # 15. kernels line, 16. result -------------------------------------------------
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("blur2d", "upconv_blur", "upsample2x")]}))
     print(f"card: {card}")

@@ -10,10 +10,20 @@ behind it on the stream, and the host waits for batch i's copy only after
 it has queued batch i+1, so the card computes while the host encodes.
 The JAX package's multi-stream transport and its device mesh are not
 ported.
+
+Command line (JAX package :136-163; reference metrics/sample.py:13-38)::
+
+    python3 -m rewriting_torch.metrics.sample --dataset church [--n 10000]
+        [--batch_size 16] [--fid_samples] [--results results/samples]
+
+loads the dataset's checkpoint through ``models/zoo.py`` with truncation
+0.5, on the card, and writes ``<results>/<dataset>_clean[_fid]/`` with a
+``done.txt`` marker at the end; a finished directory is skipped.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 
@@ -22,6 +32,7 @@ import torch
 
 from ..utils import pbar
 from ..utils.imgsave import SaveImagePool
+from ..utils.pidfile import mark_job_done, reserve_dir
 from ..utils.zdataset import standard_z_sample
 
 FID_OFFSET = 1000007  # reference sample.py:20
@@ -69,11 +80,20 @@ def quantize_uint8(imgs: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp(y, 0.0, 255.0)).to(torch.uint8)
 
 
+def default_sample_fn(model):
+    """(params, z) -> (B, H, W, 3) zc images, through ``model(params,
+    z)``."""
+    return lambda p, z: model(p, z)
+
+
 def sample_clean(model, params, outdir: str, n: int = 10000,
-                 batch_size: int = 16, offset: int = 0) -> None:
+                 batch_size: int = 16, offset: int = 0,
+                 sample_fn=None) -> None:
     """Write {outdir}/{imgnum}.png for imgnum in [0, n), image i from the z
-    of seed i + offset, through ``model(params, z)`` ((B, H, W, 3) zc
-    images)."""
+    of seed i + offset, through ``sample_fn(params, z)`` ((B, H, W, 3) zc
+    images; ``default_sample_fn(model)`` if None)."""
+    if sample_fn is None:
+        sample_fn = default_sample_fn(model)
     write_lightbox(outdir)
     saver = SaveImagePool()
 
@@ -89,7 +109,7 @@ def sample_clean(model, params, outdir: str, n: int = 10000,
             nums = list(range(lo, min(lo + batch_size, n)))
             zs = pad_batch(per_image_z(model, [i + offset for i in nums]),
                            batch_size)
-            imgs = quantize_uint8(model(params, zs))[:len(nums)]
+            imgs = quantize_uint8(sample_fn(params, zs))[:len(nums)]
             batch = (nums,) + _queue_copy(imgs)
             if pending is not None:
                 write(*pending)    # batch i-1, while batch i runs
@@ -111,3 +131,27 @@ def _queue_copy(imgs: torch.Tensor):
     copied = torch.cuda.Event()
     copied.record()
     return host, copied
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Sample clean images from a generator")
+    ap.add_argument("--dataset", choices=["faces", "church", "horse",
+                                          "kitchen", "bedroom", "car",
+                                          "cat", "places"], required=True)
+    ap.add_argument("--fid_samples", action="store_true")
+    ap.add_argument("--n", type=int, default=10000)
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--results", default="results/samples")
+    args = ap.parse_args(argv)
+    name = f"{args.dataset}_clean" + ("_fid" if args.fid_samples else "")
+    outdir = reserve_dir(os.path.join(args.results, name))
+    from ..models.zoo import load_seq_stylegan
+    model, params = load_seq_stylegan(args.dataset, truncation=0.5)
+    sample_clean(model, params, outdir, n=args.n, batch_size=args.batch_size,
+                 offset=FID_OFFSET if args.fid_samples else 0)
+    mark_job_done(outdir)
+
+
+if __name__ == "__main__":
+    main()

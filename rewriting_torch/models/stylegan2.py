@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -429,6 +430,9 @@ class SeqStyleGAN2:
         until a real latent_avg is loaded); noise buffers from
         RandomState(1).  Drawn on the CPU with a seeded torch.Generator,
         so every device gets the same numbers."""
+        return params_to(self._cpu_params(seed), self.device)
+
+    def _cpu_params(self, seed: int) -> Dict[str, dict]:
         gen = torch.Generator().manual_seed(seed)
 
         def normal(*shape):
@@ -469,7 +473,7 @@ class SeqStyleGAN2:
                     "bias": torch.zeros(3)}
             else:  # pragma: no cover
                 raise ValueError(kind)
-        return params_to(params, self.device)
+        return params
 
     # -- application --------------------------------------------------------
     def make_bag(self, z, noise: Optional[dict] = None) -> DataBag:
@@ -501,3 +505,143 @@ def params_to(params, device) -> Dict[str, dict]:
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion
+# ---------------------------------------------------------------------------
+
+# key prefixes that only rosinality's module paths have
+_ROSINALITY_PREFIXES = ("conv1.", "convs.", "to_rgbs.")
+
+
+def _seq_names_from_rosinality(sd: dict, latent_avg=None) -> dict:
+    """Rename rosinality checkpoint keys to the seq stage names (JAX
+    package :879-906; reference models.py:149-202).  A ``{"g_ema": sd,
+    "latent_avg": ...}`` checkpoint is unwrapped first."""
+    if len(sd) < 10 and "g_ema" in sd:
+        latent_avg = sd.get("latent_avg", latent_avg)
+        sd = sd["g_ema"]
+    new = {}
+    for k, v in sd.items():
+        k = re.sub(r"^conv1\.conv\.", "layer2.conv.mconv.", k)
+        k = re.sub(r"^conv1\.", "layer2.conv.", k)
+        k = re.sub(r"^convs\.(\d+)\.conv",
+                   lambda m: f"layer{int(m.group(1)) + 3}.sconv.mconv", k)
+        k = re.sub(r"^convs\.(\d+)\.",
+                   lambda m: f"layer{int(m.group(1)) + 3}.sconv.", k)
+        k = re.sub(r"^to_rgb1\.(conv\.|bias$)",
+                   lambda m: f"to_rgb1.rgb.{m.group(1)}", k)
+        k = re.sub(r"^to_rgbs\.(\d+)\.upsample\.",
+                   lambda m: f"up_rgb{int(m.group(1)) + 1}.", k)
+        k = re.sub(r"^to_rgbs\.(\d+)\.",
+                   lambda m: f"to_rgb{int(m.group(1)) + 2}.rgb.", k)
+        k = re.sub(r"mconv\.weight$", "mconv.dconv.weight", k)
+        new[k] = v
+    if latent_avg is not None:
+        new["latents.latent_avg"] = latent_avg
+    return new
+
+
+def _param_slot(k: str):
+    """(stage, param path) of a seq-named checkpoint key in the params
+    tree, or None for a fixed FIR buffer (recomputed from blur_kernel)."""
+    if re.match(r"^style\.\d+\.(weight|bias)$", k):
+        stage, pname = k.rsplit(".", 1)
+        return stage, (pname,)
+    if k == "latents.latent_avg":
+        return "latents", ("latent_avg",)
+    if re.match(r"^noises\.noise_\d+$", k):
+        return "noises", (k.split(".")[1],)
+    if k == "input.input":
+        return "input", ("input",)
+    if re.match(r".*\.mconv\.(modulation|dconv)\.(weight|bias)$", k):
+        stage, pname = k.rsplit(".", 1)
+        return stage, (pname,)
+    if k.endswith(".mconv.weight"):
+        # fast-mconv naming: the same tensor as the seq dconv weight
+        return k[:-len(".weight")] + ".dconv", ("weight",)
+    if k.endswith(".noise.weight") or k.endswith(".activate.bias"):
+        stage, pname = k.rsplit(".", 1)
+        return stage, (pname,)
+    m = re.match(r"^(to_rgb\d+\.rgb)\.conv\.modulation\.(weight|bias)$", k)
+    if m:
+        return m.group(1), ("modulation", m.group(2))
+    m = re.match(r"^(to_rgb\d+\.rgb)\.(conv\.weight|bias)$", k)
+    if m:
+        return m.group(1), (m.group(2).split(".")[-1],)
+    if re.match(r"^up_rgb\d+\.kernel$", k) or k.endswith(".mconv.blur.kernel"):
+        return None
+    raise ValueError(f"unrecognized StyleGAN2 param {k!r}")
+
+
+def params_from_state_dict(model: SeqStyleGAN2, sd: dict,
+                           latent_avg=None) -> Dict[str, dict]:
+    """The port's params (on ``model.device``) from a StyleGAN2 state dict
+    in rosinality's naming (flat or ``{"g_ema": ..., "latent_avg": ...}``)
+    or in the seq stage names; values numpy arrays or torch tensors (JAX
+    package :909-996).  The const input and the noise buffers keep the
+    checkpoint's NCHW layout.  Raises on a shape that differs from the
+    model's and on a learned param the checkpoint lacks (only the noise
+    buffers and latent_avg may be absent), never loading half a model.
+
+    Unlike the JAX package's, which takes any dict with a ``style.`` key
+    for seq-named (rosinality's mapping network has ``style.`` keys too),
+    this one tells the two namings apart by rosinality's own module paths,
+    so a flat rosinality dict loads as well as a wrapped one."""
+    sd = dict(sd)
+    if "g_ema" in sd or any(k.startswith(_ROSINALITY_PREFIXES) for k in sd):
+        sd = _seq_names_from_rosinality(sd, latent_avg)
+    elif latent_avg is not None:
+        sd["latents.latent_avg"] = latent_avg
+
+    template = model._cpu_params(seed=0)
+    params = {stage: {k: (dict(v) if isinstance(v, dict) else v)
+                      for k, v in sub.items()}
+              for stage, sub in template.items()}
+    for k, v in sd.items():
+        slot = _param_slot(k)
+        if slot is None:
+            continue
+        stage, path = slot
+        if stage not in params:
+            raise ValueError(f"checkpoint param {k!r} has no stage "
+                             f"{stage!r} in this model")
+        holder = params[stage]
+        for p in path[:-1]:
+            holder = holder[p]
+        want = holder.get(path[-1])
+        if want is None:
+            raise ValueError(f"checkpoint param {k!r} has no slot in this "
+                             "model")
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        arr = torch.from_numpy(np.array(v, np.float32))
+        # the noise strength (1,) and the to_rgb bias (1, 3, 1, 1) come in
+        # other shapes of the same size; every other param keeps its shape
+        if ((stage.endswith(".noise") and path == ("weight",))
+                or (stage.startswith("to_rgb") and path == ("bias",))) and \
+                arr.numel() == want.numel():
+            arr = arr.reshape(want.shape)
+        if path[-1] != "latent_avg" and tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"checkpoint param {k!r} has shape "
+                             f"{tuple(arr.shape)}, model expects "
+                             f"{tuple(want.shape)}")
+        holder[path[-1]] = arr
+
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, dict):
+                yield from leaves(val, name)
+            else:
+                yield name, val
+    missing = [name for (name, got), (_, orig) in zip(leaves(params),
+                                                      leaves(template))
+               if got is orig and "latent_avg" not in name
+               and ".noise_" not in name]
+    if missing:
+        raise ValueError(
+            f"checkpoint is missing {len(missing)} learned params "
+            f"(e.g. {missing[:4]}); refusing a silent partial load")
+    return params_to(params, model.device)

@@ -1,5 +1,8 @@
-from .rewriter import GanRewriter, SeqStyleGanRewriter
-from .solve import insert_solve, projected_conv, zca_from_cov
+from .rewriter import (GanRewriter, SeqPreStyleGanRewriter,
+                       SeqStyleGanRewriter, SeqTinyStyleGanRewriter)
+from .solve import (fast_linear_insert_solve, insert_solve,
+                    linear_insert_solve, projected_conv, zca_from_cov)
 
-__all__ = ["GanRewriter", "SeqStyleGanRewriter", "insert_solve",
-           "projected_conv", "zca_from_cov"]
+__all__ = ["GanRewriter", "SeqStyleGanRewriter", "SeqTinyStyleGanRewriter",
+           "SeqPreStyleGanRewriter", "insert_solve", "linear_insert_solve",
+           "fast_linear_insert_solve", "projected_conv", "zca_from_cov"]

@@ -1,12 +1,17 @@
 """The rewriting engine: treat one conv layer as a linear associative
 memory and rewrite it with a rank-constrained weight edit.
 
-Counterpart of the JAX package's ``rewrite/rewriter.py`` ``GanRewriter``
-(:42-694) and ``SeqStyleGanRewriter`` (:718), cut to this port's edit
-loop: the three-way split, the shape probe, the key second moment and its
-ZCA, the ``zca`` context direction, the pasted goal (tight or whole-map),
-the Adam solve with its projection (or without, ``low_rank_insert=False``),
-one key of a request (``single_key``), and revert.
+Counterpart of the JAX package's ``rewrite/rewriter.py``: ``GanRewriter``
+(:42-694), ``SeqStyleGanRewriter`` (:718-799) and its Tiny and Pre
+variants (:801-857).  Ported: the three-way split, the shape probe, the
+key second moment and its ZCA; the query key and the ``zca``, ``svd`` and
+``mean`` context directions; the pasted goal (tight or whole-map, with or
+without the object's alpha) and the erase goal with its normdissect
+units; the three solves (projected Adam, with or without its gradient
+projected; the direct ``Λ·D`` solve; its fast decomposition) and ``zero``;
+the renders; revert.  Waiting: the ``gandissect`` directions,
+``ranking_for_key`` and the quantile hooks (they need the quantile
+sketch), and ``apply_overfit``/``all_weights_insert``.
 
 The generator splits into context / target / rendering sub-pipelines by
 stage name; all three read the one params dict, so an edit is a new weight
@@ -18,27 +23,48 @@ Layout: the model runs NCHW; the public accessors (``context_acts``,
 ``target_acts``, ``rendered_image``, ``k_shape``/``v_shape``/``x_shape``
 and the arrays of ``object_from_selection``) are NHWC like the JAX
 package's, and masks and geometry index the activations through them.
+The renders are ``uint8 (H, W, 3)`` numpy arrays where the JAX package
+returns PIL images.
+
+The solves return their per-step losses (the JAX package's return
+nothing), and with ``return_timing`` ``(losses, elapsed ms)``.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import random
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import DataBag
 from ..models.stylegan2 import params_to
 from ..ops import precision
 from ..stats import running, tally
-from ..utils import renormalize
+from ..utils import imgviz, renormalize
 from ..utils.device import resolve_device
 from . import geometry, solve
 
 
+KEY_METHODS = ("zca", "svd", "mean")
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _check_key_method(key_method: str) -> None:
+    if key_method == "gandissect":
+        raise NotImplementedError(
+            "key_method 'gandissect' needs the per-unit quantile sketch "
+            "(tally_quantile), which is not ported yet (ROADMAP.md queue "
+            "1, item 7)")
+    if key_method not in KEY_METHODS:
+        raise ValueError(f"key_method {key_method!r}: one of {KEY_METHODS}")
 
 
 class GanRewriter:
@@ -50,6 +76,7 @@ class GanRewriter:
     def __init__(self, model, params, zds, layernum,
                  cachedir: Optional[str] = None,
                  low_rank_insert: bool = True,
+                 low_rank_gradient: bool = False,
                  tight_paste: bool = True,
                  key_method: str = "zca",
                  stats_batch_size: int = 10,
@@ -58,17 +85,17 @@ class GanRewriter:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, rewriter asked "
                              f"for {self.device}")
-        if key_method != "zca":
-            raise NotImplementedError(
-                f"key_method {key_method!r}: only 'zca' is ported")
+        _check_key_method(key_method)
         precision.apply_parity_tier()
         self.model = model
         self.zds = zds
         self.cachedir = cachedir
         self.low_rank_insert = low_rank_insert
+        self.low_rank_gradient = low_rank_gradient
         self.tight_paste = tight_paste
         self.key_method = key_method
         self.stats_batch_size = stats_batch_size
+        self.unit_rs = None
 
         self.firstlayer, self.lastlayer = self.maplayers(layernum)
         # own copy of the params dict: edits never touch the caller's tree
@@ -109,7 +136,7 @@ class GanRewriter:
         """The target window's output with `w` as the edited weight."""
         bag, p = goal
         p = dict(p)
-        p[self.firstlayer] = {**p[self.firstlayer], "weight": w}
+        p[self.weight_stage()] = {**p[self.weight_stage()], "weight": w}
         return self.target_pipe(p, bag)["fmap"]
 
     # -- model-family hooks ---------------------------------------------------
@@ -153,13 +180,17 @@ class GanRewriter:
             self.params, self._target(self.params,
                                       self._context(self.params, bag))))
 
+    def weight_stage(self) -> str:
+        """The stage whose weight the edit rewrites."""
+        return self.firstlayer
+
     def target_weight(self) -> torch.Tensor:
-        return self.params[self.firstlayer]["weight"]
+        return self.params[self.weight_stage()]["weight"]
 
     def set_target_weight(self, w: torch.Tensor) -> None:
+        stage = self.weight_stage()
         self.params = dict(self.params)
-        self.params[self.firstlayer] = {**self.params[self.firstlayer],
-                                        "weight": w}
+        self.params[stage] = {**self.params[stage], "weight": w}
 
     def revert(self) -> None:
         """Restore the pristine weights."""
@@ -170,6 +201,12 @@ class GanRewriter:
                                                                fn)
 
     # -- statistics -------------------------------------------------------------
+    def _key_rows(self, zbatch) -> torch.Tensor:
+        """(pixels, C) context activations of a z batch."""
+        acts = self.context_acts(self._context(self.params,
+                                               self.model.make_bag(zbatch)))
+        return acts.reshape(-1, acts.shape[-1])
+
     def collect_2nd_moment(self) -> torch.Tensor:
         """Uncentered second moment C = E[k kᵀ] of the context keys over
         the z dataset; npz-cached in the JAX package's format."""
@@ -180,12 +217,8 @@ class GanRewriter:
             r = running.RunningSecondMoment.from_state_dict(cached,
                                                             self.device)
         else:
-            def rows(zbatch):
-                acts = self.context_acts(self._context(
-                    self.params, self.model.make_bag(zbatch)))
-                return acts.reshape(-1, acts.shape[-1])
             with precision.schedule_suspended():
-                r = tally.tally_second_moment(rows, self.zds.zs,
+                r = tally.tally_second_moment(self._key_rows, self.zds.zs,
                                               self.stats_batch_size,
                                               self.device)
             tally.save_cached_state(cachefile, r, args)
@@ -195,6 +228,11 @@ class GanRewriter:
         """C^{-1} k."""
         return solve.solve_spd(self.c_matrix, k)
 
+    def covariance_adjusted_key(self, k, kout_bag) -> np.ndarray:
+        """The adjusted key of rows `k` of the context bag `kout_bag`; a
+        subclass may read the bag (``SeqPreStyleGanRewriter``)."""
+        return self.covariance_adjusted_query_key(k)
+
     def zca_whitened_query_key(self, k) -> torch.Tensor:
         """C^{-1/2} k; rows in, rows out (the ZCA matrix is symmetric)."""
         k = torch.as_tensor(k, dtype=torch.float32, device=self.device)
@@ -202,10 +240,38 @@ class GanRewriter:
             return self.zca_matrix @ k
         return k @ self.zca_matrix
 
+    def square_scales_for_units(self) -> torch.Tensor:
+        """(C,) mean squared context activation of each unit over the z
+        dataset, npz-cached as ``unit_rs.npz``."""
+        if self.unit_rs is None:
+            with precision.schedule_suspended():
+                self.unit_rs = tally.tally_mean(
+                    lambda z: torch.square(self._key_rows(z)), self.zds,
+                    batch_size=self.stats_batch_size,
+                    cachefile=self.rf("unit_rs.npz"),
+                    device=self.device).mean()
+        return self.unit_rs
+
     # -- selections (masks -> activations) ---------------------------------------
     def _mask_at(self, mask_url, shape) -> np.ndarray:
         """The mask decoded at a feature map's (H, W)."""
         return renormalize.mask_from_url(mask_url, size=tuple(shape))
+
+    def _context_np(self, imgnum) -> Tuple[DataBag, np.ndarray]:
+        """(context bag, its NHWC activations as numpy) of one image."""
+        bag = self.context_of(imgnum)
+        return bag, self.context_acts(bag).cpu().numpy()
+
+    def query_key_from_selection(self, imgnum, mask) -> torch.Tensor:
+        """(C,) unit key: the mask-weighted mean context activation,
+        adjusted by C^{-1} (reference ganrewrite.py:427-436)."""
+        area = self._mask_at(mask, self.k_shape[1:3])
+        _, k_acts = self._context_np(imgnum)
+        mean = (k_acts[0] * area[:, :, None]).sum((0, 1)) / (1e-10
+                                                             + area.sum())
+        k = self.covariance_adjusted_query_key(mean)
+        return torch.as_tensor(k / (1e-10 + np.linalg.norm(k)),
+                               device=self.device)
 
     def object_from_selection(self, imgnum, mask):
         """The copied object's target activations, cropped to the mask's
@@ -217,10 +283,10 @@ class GanRewriter:
         return v_acts[:, t:b, l:r, :], v_bag, area[t:b, l:r], (t, l, b, r)
 
     def paste_from_selection(self, imgnum, mask, obj_acts, obj_area):
-        """(goal_in, goal_out, viz_out, bounds) of the paste edit."""
+        """(goal_in, goal_out, viz_out, bounds) of the paste edit; the
+        object is blended by its mask."""
         area = self._mask_at(mask, self.v_shape[1:3])
-        source_bag = self.context_of(imgnum)
-        source_acts = self.context_acts(source_bag).cpu().numpy()
+        source_bag, source_acts = self._context_np(imgnum)
         unchanged_bag = self._target(self.params, source_bag)
         unchanged_acts = self.target_acts(unchanged_bag).cpu().numpy()
         target_acts, bounds = geometry.paste_clip_at_center(
@@ -241,54 +307,196 @@ class GanRewriter:
                                            None)
         return goal_in, goal_out, viz_out, bounds
 
+    def erase_from_selection(self, imgnum, mask, context_mask_pairs, drank):
+        """(goal_in, goal_out) of the erase edit: the goal is the target
+        window's output with the top-`drank` normdissect units of the
+        context zeroed (reference ganrewrite.py:472-496)."""
+        k_area = self._mask_at(mask, self.k_shape[1:3])
+        area = self._mask_at(mask, self.v_shape[1:3])
+        source_bag, source_acts = self._context_np(imgnum)
+        unchanged_bag = self._target(self.params, source_bag)
+        d_units = self.normdissect_units(context_mask_pairs,
+                                         drank).cpu().numpy()
+        erased = source_acts.copy()
+        erased[..., d_units] = 0.0
+        erased_out = self._target(self.params, self.merge_target_output(
+            source_bag, erased, None))
+        target_acts = self.target_acts(erased_out).cpu().numpy()
+        if self.tight_paste:
+            source_bounds = geometry.positive_bounding_box(k_area)
+            target_bounds = geometry.positive_bounding_box(area)
+        else:
+            source_bounds, target_bounds = None, None
+        goal_in = self.merge_target_output(source_bag, source_acts,
+                                           source_bounds)
+        goal_out = self.merge_target_output(unchanged_bag, target_acts,
+                                            target_bounds)
+        return goal_in, goal_out
+
+    def rgb_from_selection(self, imgnum, mask):
+        """The object's pixels cropped to the mask's bounding box: (rgb
+        (1,h,w,3), the whole image, area (h,w), bounds)."""
+        area = self._mask_at(mask, self.x_shape[1:3])
+        x = self.sample_image_from_latent(self.get_z(imgnum)).cpu().numpy()
+        t, l, b, r = geometry.positive_bounding_box(area)
+        return x[:, t:b, l:r, :], x, area[t:b, l:r], (t, l, b, r)
+
+    def rgbpaste_from_selection(self, imgnum, mask, obj_rgb, obj_area):
+        """(z, the image with the object pasted at the mask, bounds)."""
+        area = self._mask_at(mask, self.x_shape[1:3])
+        source_z = self.get_z(imgnum)
+        unchanged = self.sample_image_from_latent(source_z).cpu().numpy()
+        changed, bounds = geometry.paste_clip_at_center(
+            unchanged, obj_rgb, geometry.centered_location(area), obj_area)
+        return source_z, changed, bounds
+
     # -- context directions ---------------------------------------------------
-    def _gather_masked_obs(self, imgnum_mask_pairs):
-        """(pixels, C) context activations under the masks and their
-        (pixels, 1) mask weights, over all selection pairs."""
+    def normdissect_units(self, imgnum_mask_pairs, rank) -> torch.Tensor:
+        """The `rank` units of largest mask-weighted squared activation
+        relative to their mean square over the z dataset (reference
+        ganrewrite.py:453-470)."""
+        obs, wts = self._gather_masked_obs(imgnum_mask_pairs, keep_all=True)
+        sq = self.square_scales_for_units().cpu().numpy()
+        score = (obs ** 2) / sq[None, :]
+        mean_score = (score * wts).sum(0) / wts.sum()
+        return torch.as_tensor(np.argsort(-mean_score)[:rank].copy(),
+                               device=self.device)
+
+    def _gather_masked_obs(self, imgnum_mask_pairs, keep_all=False):
+        """(pixels, C) context activations and their (pixels, 1) mask
+        weights over all selection pairs; only the masked pixels unless
+        `keep_all`."""
         all_obs, all_w = [], []
         for imgnum, mask in imgnum_mask_pairs:
-            k_acts = self.context_acts(self.context_of(imgnum)).cpu().numpy()
+            _, k_acts = self._context_np(imgnum)
             area = self._mask_at(mask, self.k_shape[1:3])
             all_obs.append(k_acts.reshape(-1, k_acts.shape[-1]))
             all_w.append(area.reshape(-1, 1))
         obs = np.concatenate(all_obs)
         w = np.concatenate(all_w)
+        if keep_all:
+            return obs, w
         sel = w[:, 0] > 0
         return obs[sel], w[sel]
 
-    def multi_key_from_selection(self, imgnum_mask_pairs, rank=1
-                                 ) -> torch.Tensor:
-        """The (rank, C) orthonormal context directions D of the 'zca'
-        method: whiten the masked keys, take their top right-singular
-        vectors, map them back to row space, orthonormalize and align
-        their signs with the whitened mean (reference ganrewrite.py:
-        333-425)."""
-        obs, w = self._gather_masked_obs(imgnum_mask_pairs)
-        zca_k = self.zca_whitened_query_key(obs).cpu().numpy() * w
-        _, _, vh = np.linalg.svd(zca_k, full_matrices=False)
-        top_e_vec = vh[:rank].T                              # (C, rank)
-        row_dirs = self.zca_whitened_query_key(top_e_vec.T).cpu().numpy()
-        just_avg = zca_k.sum(0)
-        q, _ = np.linalg.qr(row_dirs.T)                      # (C, rank)
-        signs = np.sign((q * just_avg[:, None]).sum(0))
-        signs[signs == 0] = 1.0
-        return torch.as_tensor((q * signs[None, :]).T, device=self.device)
+    def multi_key_from_selection(self, imgnum_mask_pairs, rank=1,
+                                 key_method=None) -> torch.Tensor:
+        """The (rank, C) orthonormal context directions D (reference
+        ganrewrite.py:333-425).  'zca': whiten the masked keys, take their
+        top right-singular vectors, map them back to row space,
+        orthonormalize and align their signs with the whitened mean.
+        'svd'/'mean': each pair's masked keys through the
+        ``covariance_adjusted_key`` hook, then their top left-singular
+        vectors (the first signed along the mean) or their normalized
+        mean (rank 1)."""
+        key_method = key_method or self.key_method
+        _check_key_method(key_method)
+        if key_method == "zca":
+            obs, w = self._gather_masked_obs(imgnum_mask_pairs)
+            zca_k = self.zca_whitened_query_key(obs).cpu().numpy() * w
+            _, _, vh = np.linalg.svd(zca_k, full_matrices=False)
+            top_e_vec = vh[:rank].T                          # (C, rank)
+            row_dirs = self.zca_whitened_query_key(top_e_vec.T).cpu().numpy()
+            just_avg = zca_k.sum(0)
+            q, _ = np.linalg.qr(row_dirs.T)                  # (C, rank)
+            signs = np.sign((q * just_avg[:, None]).sum(0))
+            signs[signs == 0] = 1.0
+            return torch.as_tensor((q * signs[None, :]).T, device=self.device)
+        adjusted = []
+        for imgnum, mask in imgnum_mask_pairs:
+            k_bag, k_acts = self._context_np(imgnum)
+            area = self._mask_at(mask, self.k_shape[1:3])
+            weighted = (k_acts.reshape(-1, k_acts.shape[-1])
+                        * area.reshape(-1, 1))
+            nonzero = weighted[np.linalg.norm(weighted, axis=1) > 0]
+            if len(nonzero):
+                adjusted.append(np.asarray(
+                    self.covariance_adjusted_key(nonzero, k_bag)))
+        all_k = np.concatenate(adjusted)
+        just_avg = all_k.mean(0)
+        if key_method == "mean":
+            if rank != 1:
+                raise ValueError("key_method 'mean' gives one direction")
+            return torch.as_tensor((just_avg / np.linalg.norm(just_avg))[None],
+                                   device=self.device)
+        u, _, _ = np.linalg.svd(all_k.T, full_matrices=True)
+        if (just_avg * u[:, 0]).sum() < 0:
+            u[:, 0] = -u[:, 0]
+        return torch.as_tensor(np.ascontiguousarray(u.T[:rank]),
+                               device=self.device)
 
-    # -- the weight solve -------------------------------------------------------
+    # -- the weight solves -------------------------------------------------------
+    def _commit(self, out):
+        """Commit a solve's weight; its losses, with the time if timed."""
+        self.set_target_weight(out[0])
+        return out[1] if len(out) == 2 else (out[1], out[2])
+
     def insert(self, goal_in: DataBag, goal_out: DataBag, context,
-               niter=2001, piter=10, lr=0.05) -> np.ndarray:
+               update_callback=None, niter=2001, piter=10, lr=0.05,
+               return_timing=False):
         """Rank-constrained solve (unconstrained with low_rank_insert off);
-        commits the new weight into self.params and returns the per-step
-        losses."""
-        w, losses = solve.insert_solve(
+        commits the new weight into self.params (reference
+        ganrewrite.py:254-298).  The direct Λ·D solve is linear_insert."""
+        return self._commit(solve.insert_solve(
             self._window_fn, self.target_weight(), (goal_in, self.params),
             goal_out["fmap"], context, niter=niter, piter=piter, lr=lr,
-            low_rank_insert=self.low_rank_insert)
-        self.set_target_weight(w)
-        return losses
+            low_rank_insert=self.low_rank_insert,
+            low_rank_gradient=self.low_rank_gradient,
+            update_callback=update_callback, return_timing=return_timing))
 
+    def linear_insert(self, goal_in, goal_out, context, update_callback=None,
+                      niter=2001, lr=0.05, return_timing=False):
+        """The direct Λ·D solve (reference ganrewrite.py:201-252)."""
+        return self._commit(solve.linear_insert_solve(
+            self._window_fn, self.target_weight(), (goal_in, self.params),
+            goal_out["fmap"], context, niter=niter, lr=lr,
+            update_callback=update_callback, return_timing=return_timing))
+
+    def _fast_parts(self, goal_in):
+        """(conv_fn, tail_fn, scale, use_demod) of the decomposed solve,
+        or None where the window does not start at the linear conv."""
+        return None
+
+    def fast_parts_cached(self):
+        """_fast_parts, made once per rewriter."""
+        if not hasattr(self, "_fast_parts_memo"):
+            self._fast_parts_memo = self._fast_parts(None)
+        return self._fast_parts_memo
+
+    def fast_linear_insert(self, goal_in, goal_out, context,
+                           update_callback=None, niter=2001, lr=0.05,
+                           return_timing=False):
+        """The Λ·D solve with the window's full conv computed once
+        (solve.fast_linear_insert_solve); the direct one where the window
+        does not decompose."""
+        parts = self.fast_parts_cached()
+        if parts is None:
+            return self.linear_insert(goal_in, goal_out, context,
+                                      update_callback=update_callback,
+                                      niter=niter, lr=lr,
+                                      return_timing=return_timing)
+        conv_fn, tail_fn, scale, use_demod = parts
+        return self._commit(solve.fast_linear_insert_solve(
+            conv_fn, tail_fn, goal_in, self.params, goal_out["fmap"],
+            self.target_weight(), context, scale, niter=niter, lr=lr,
+            use_demod=use_demod, update_callback=update_callback,
+            return_timing=return_timing))
+
+    def zero(self, context, amount=0.0) -> None:
+        """GANdissect's erase: the weight's component along the context
+        directions set to `amount` times that of an all-ones weight
+        (reference ganrewrite.py:190-199)."""
+        w = self.target_weight()
+        context = torch.as_tensor(context, dtype=w.dtype, device=w.device)
+        ortho = w - solve.projected_conv(w, context)
+        self.set_target_weight(
+            ortho + amount * solve.projected_conv(torch.ones_like(w),
+                                                  context))
+
+    # -- edit-request entry points -------------------------------------------
     def apply_edit(self, request, rank=1, niter=2001, piter=10, lr=0.05,
-                   single_key: int = -1) -> np.ndarray:
+                   update_callback=None, single_key: int = -1,
+                   return_timing=False):
         """Apply a UI-format JSON edit request; returns the solve's
         per-step losses.  With ``single_key >= 0`` only that key example
         of the request shapes the context direction."""
@@ -302,8 +510,68 @@ class GanRewriter:
         goal_in, goal_out, _, _ = self.paste_from_selection(
             p_imgnum, p_mask, obj_acts, obj_area)
         mkey = self.multi_key_from_selection(key_examples, rank=rank)
-        return self.insert(goal_in, goal_out, mkey, niter=niter,
+        return self.insert(goal_in, goal_out, mkey,
+                           update_callback=update_callback, niter=niter,
+                           piter=piter, lr=lr, return_timing=return_timing)
+
+    def apply_erase(self, request, rank=1, drank=30, niter=2001, piter=10,
+                    lr=0.05, update_callback=None):
+        """Erase the request's paste region: zero its top-`drank` context
+        units in the goal and solve (reference ganrewrite.py:135-146);
+        returns the losses."""
+        p_imgnum, p_mask = request["paste"]
+        key_examples = request.get("key", [(p_imgnum, p_mask)])
+        goal_in, goal_out = self.erase_from_selection(
+            p_imgnum, p_mask, key_examples, drank)
+        mkey = self.multi_key_from_selection(key_examples, rank=rank)
+        return self.insert(goal_in, goal_out, mkey,
+                           update_callback=update_callback, niter=niter,
                            piter=piter, lr=lr)
+
+    # -- renders: uint8 (H, W, 3) arrays ---------------------------------------
+    def render_object(self, target_bag, box=None) -> np.ndarray:
+        """Render a target bag; `box` (t, l, b, r in target-map
+        coordinates) is outlined in red (reference ganrewrite.py:596-608).
+        """
+        img = self.rendered_image(self._render(self.params,
+                                               target_bag)).cpu().numpy()
+        if box is None:
+            return renormalize.as_image(img[0])
+        t, l, b, r = box
+        lowres = np.zeros(self.v_shape[1:3], np.float32)
+        lowres[t:b, l:r] = 1.0
+        iv = imgviz.ImageVisualizer(img.shape[1:3])
+        return iv.masked_image(img[0], mask=lowres, border_color=(255, 0, 0),
+                               thickness=3, outside_bright=1.0)
+
+    def render_image(self, imgnum) -> np.ndarray:
+        img = self.sample_image_from_latent(self.get_z(imgnum)).cpu().numpy()
+        return renormalize.as_image(img[0])
+
+    def render_image_batch(self, imgnums, key=None, level=None,
+                           batch_size=8, **kwargs):
+        """Renders of the images; with (key, level), each with the key's
+        response thresholded at `level` outlined, the UI's search
+        highlight (reference ganrewrite.py:626-650)."""
+        out = []
+        iv = None
+        if key is not None and level is not None:
+            key = torch.as_tensor(key, dtype=torch.float32,
+                                  device=self.device)
+            iv = imgviz.ImageVisualizer(self.x_shape[1:3])
+        for i in range(0, len(imgnums), batch_size):
+            zb = np.stack([self.zds[j] for j in imgnums[i:i + batch_size]])
+            imgs = self.sample_image_from_latent(zb).cpu().numpy()
+            if iv is None:
+                out.extend(renormalize.as_image(im) for im in imgs)
+                continue
+            acts = self.context_acts(self._context(
+                self.params, self.model.make_bag(zb)))
+            heat = torch.sum(acts * key, dim=-1).cpu().numpy()
+            out.extend(iv.masked_image(im, activations=heat[j],
+                                       level=float(level), **kwargs)
+                       for j, im in enumerate(imgs))
+        return out
 
 
 class SeqStyleGanRewriter(GanRewriter):
@@ -314,3 +582,94 @@ class SeqStyleGanRewriter(GanRewriter):
         prefix = "conv" if layernum == 2 else "sconv"
         return (f"layer{layernum}.{prefix}.mconv.dconv",
                 f"layer{layernum}.{prefix}.activate")
+
+    def _fast_parts(self, goal_in):
+        """The window's bare conv (``F.conv_transpose2d`` at an upsampling
+        layer, ``F.conv2d`` otherwise) and the stages after it; demod on."""
+        spec = self.model._param_specs.get(self.firstlayer)
+        if spec is None or spec[0] != "dconv":
+            return None      # the window starts before the linear conv
+        _, in_c, _, k, upsample = spec
+        scale = 1.0 / math.sqrt(in_c * k * k)
+
+        def conv_fn(x, w):
+            if upsample:
+                # == the flipped kernel over the 2-dilated input
+                return F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+            return F.conv2d(x, w, padding=k // 2)
+
+        if self.firstlayer == self.lastlayer:
+            def tail_fn(params, bag):
+                return bag
+        else:
+            tail_fn = self.model.pipeline.subsequence(
+                after_layer=self.firstlayer, last_layer=self.lastlayer)
+        return conv_fn, tail_fn, scale, True
+
+    def sample_image_patch(self, z, act_crop_size: int, seed=(None, None)
+                           ) -> torch.Tensor:
+        """(B, h, w, 3) image patch rendered from an `act_crop_size`
+        square crop of the window's input, at `seed` (row, column) or a
+        random place (reference ganrewrite.py:667-698)."""
+        bag = self._context(self.params, self.model.make_bag(z))
+        h, w = bag["fmap"].shape[2:4]
+        if act_crop_size > h:
+            raise ValueError(f"crop {act_crop_size} > map {h}")
+        if seed[0] is not None:
+            xi, yi = seed
+        else:
+            xi = random.randint(0, h - act_crop_size)
+            yi = random.randint(0, w - act_crop_size)
+        cropped = _patched_bag(bag, xi, yi, act_crop_size)
+        return self.rendered_image(self._render(
+            self.params, self._target(self.params, cropped)))
+
+
+def _patched_bag(bag: DataBag, xi, yi, size) -> DataBag:
+    """The bag with its NCHW feature map cropped to the square at (xi,
+    yi), and its rgb output to the same place (2x larger where the output
+    is at twice the map's resolution)."""
+    new = DataBag(bag)
+    fmap = bag["fmap"]
+    new["fmap"] = fmap[:, :, xi:xi + size, yi:yi + size]
+    if "output" in bag:
+        out = bag["output"]
+        f = 1 if out.shape[2:4] == fmap.shape[2:4] else 2
+        new["output"] = out[:, :, f * xi:f * (xi + size),
+                            f * yi:f * (yi + size)]
+    return new
+
+
+class SeqTinyStyleGanRewriter(SeqStyleGanRewriter):
+    """Edit window = the dconv alone: no nonlinearity in the target
+    (reference ganrewrite.py:732-739)."""
+
+    def maplayers(self, layernum):
+        prefix = "conv" if layernum == 2 else "sconv"
+        name = f"layer{layernum}.{prefix}.mconv.dconv"
+        return name, name
+
+
+class SeqPreStyleGanRewriter(SeqStyleGanRewriter):
+    """Edit window = adain .. activate: the style modulation is inside the
+    window, so the keys are adjusted by C·diag(style) (reference
+    ganrewrite.py:742-760).  The rewritten weight is the dconv's."""
+
+    def maplayers(self, layernum):
+        prefix = "conv" if layernum == 2 else "sconv"
+        return (f"layer{layernum}.{prefix}.mconv.adain",
+                f"layer{layernum}.{prefix}.activate")
+
+    def weight_stage(self) -> str:
+        return self.firstlayer.replace(".adain", ".dconv")
+
+    def covariance_adjusted_key(self, k, kout_bag) -> np.ndarray:
+        """(C·diag(style))^{-1} k, with the style of this selection's bag,
+        in float64 on the host."""
+        style = kout_bag["style"][0].detach().cpu().numpy()
+        cs = self.c_matrix.detach().cpu().numpy() * style[None, :]
+        kk = np.asarray(k, np.float64)
+        single = kk.ndim == 1
+        x = np.linalg.solve(cs.astype(np.float64),
+                            kk[:, None] if single else kk.T)
+        return (x[:, 0] if single else x.T).astype(np.float32)

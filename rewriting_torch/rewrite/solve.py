@@ -2,18 +2,28 @@
 
 Counterpart of the JAX package's ``rewrite/solve.py``: ``projected_conv``
 and ``rank_one_conv`` (:39-56), the float64 ``zca_from_cov`` and
-``solve_spd`` (:58-80) and ``insert_solve`` (:90-196).  The JAX package
-compiles the solve into one ``lax.scan``; here it is an eager loop with
-``torch.optim.Adam``, the update rule that optax's Adam mirrors.
+``solve_spd`` (:58-80), ``insert_solve`` (:90-196), and the two solves of
+the update ``w = w0 + Λ·D``: ``linear_insert_solve`` (:287-342) and its
+low-rank decomposition ``fast_linear_insert_solve`` (:199-285).  The JAX
+package compiles each solve into one ``lax.scan``; here each is an eager
+loop with ``torch.optim.Adam``, the update rule that optax's Adam mirrors.
+
+Every solve returns ``(weight, per-step losses)``, or with
+``return_timing`` ``(weight, losses, elapsed ms)``, the time from a
+synchronised start to a synchronised end of the loop; ``update_callback``
+is called with ``(step, loss)`` for every step once the loop has ended,
+so the loop never waits on the device for it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..core import DataBag
 from ..ops import precision
 
 
@@ -57,35 +67,172 @@ def solve_spd(c_matrix: torch.Tensor, k) -> np.ndarray:
     return (x[:, 0] if single else x.T).astype(np.float32)
 
 
+class _Timer:
+    """Wall time of a solve between two device synchronisations."""
+
+    def __init__(self, device: torch.device, on: bool):
+        self.device, self.on = device, on
+        self.ms = None
+        if on:
+            self._sync()
+            self.t0 = time.perf_counter()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def stop(self):
+        if self.on:
+            self._sync()
+            self.ms = (time.perf_counter() - self.t0) * 1000.0
+
+
+def _finish(w: torch.Tensor, losses, timer: _Timer,
+            update_callback: Optional[Callable]):
+    """(w, losses as numpy[, elapsed ms]) after the callbacks."""
+    timer.stop()
+    losses = (torch.stack(losses).cpu().numpy() if losses
+              else np.zeros((0,), np.float32))
+    if update_callback is not None:
+        for it, loss in enumerate(losses):
+            update_callback(it, loss)
+    if timer.on:
+        return w, losses, timer.ms
+    return w, losses
+
+
+def _adam_loop(param: torch.Tensor, loss_fn: Callable, niter: int,
+               lr: float, after_backward=None, after_step=None):
+    """`niter` Adam steps on `param` (which requires grad) of
+    ``loss_fn()``; ``after_backward()`` may rewrite the gradient and
+    ``after_step(it)`` the parameter.  Returns the per-step losses (device
+    scalars)."""
+    opt = torch.optim.Adam([param], lr=lr)
+    losses = []
+    with precision.schedule_suspended():
+        for it in range(niter):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn()
+            loss.backward()
+            if after_backward is not None:
+                after_backward()
+            opt.step()
+            losses.append(loss.detach())
+            if after_step is not None:
+                after_step(it)
+    return losses
+
+
 def insert_solve(window_fn: Callable, weight0: torch.Tensor, goal_in,
                  goal_out: torch.Tensor, direction, niter: int = 2001,
                  piter: int = 10, lr: float = 0.05,
-                 low_rank_insert: bool = True
-                 ) -> Tuple[torch.Tensor, np.ndarray]:
+                 low_rank_insert: bool = True,
+                 low_rank_gradient: bool = False,
+                 update_callback: Optional[Callable] = None,
+                 return_timing: bool = False):
     """Minimize ``mean|goal_out - window_fn(w, goal_in)|`` by Adam from
     ``weight0``.  With ``low_rank_insert`` the change stays in
     span(direction): after step 0, every `piter` steps and the last step,
     w is reset to ``ortho + projected_conv(w, direction)`` with ``ortho =
     weight0 - projected_conv(weight0, direction)``; without it the steps
-    are plain Adam (JAX package :113-116).  Returns (weight, per-step
-    losses)."""
+    are plain Adam (JAX package :113-116).  With ``low_rank_gradient`` the
+    gradient is projected onto span(direction) before each Adam step."""
     direction = torch.as_tensor(direction, dtype=weight0.dtype,
                                 device=weight0.device)
+    timer = _Timer(weight0.device, return_timing)
     weight0 = weight0.detach()
     ortho = weight0 - projected_conv(weight0, direction)
     w = weight0.clone().requires_grad_(True)
-    opt = torch.optim.Adam([w], lr=lr)
-    losses = []
-    with precision.schedule_suspended():
-        for it in range(niter):
-            opt.zero_grad(set_to_none=True)
-            loss = torch.mean(torch.abs(goal_out - window_fn(w, goal_in)))
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-            if low_rank_insert and (it % piter == 0 or it == niter - 1):
-                with torch.no_grad():
-                    w.copy_(ortho + projected_conv(w, direction))
-    losses = (torch.stack(losses).cpu().numpy() if losses
-              else np.zeros((0,), np.float32))
-    return w.detach(), losses
+
+    def project_grad():
+        w.grad.copy_(projected_conv(w.grad, direction))
+
+    def project(it):
+        if low_rank_insert and (it % piter == 0 or it == niter - 1):
+            with torch.no_grad():
+                w.copy_(ortho + projected_conv(w, direction))
+
+    losses = _adam_loop(
+        w, lambda: torch.mean(torch.abs(goal_out - window_fn(w, goal_in))),
+        niter, lr, project_grad if low_rank_gradient else None, project)
+    return _finish(w.detach(), losses, timer, update_callback)
+
+
+def _lift(lam: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Λ (..., O, rank, kh, kw) -> the weight change Λ·D (..., O, I, kh,
+    kw)."""
+    return torch.einsum("...odyx,di->...oiyx", lam, direction)
+
+
+def linear_insert_solve(window_fn: Callable, weight0: torch.Tensor,
+                        goal_in, goal_out: torch.Tensor, direction,
+                        niter: int = 2001, lr: float = 0.05,
+                        update_callback: Optional[Callable] = None,
+                        return_timing: bool = False):
+    """The reference's other parameterization (ganrewrite.py:201-252):
+    Adam on Λ, zero at the start, with ``w = weight0 + Λ·D``, so the
+    change lies in span(direction) by construction."""
+    direction = torch.as_tensor(direction, dtype=weight0.dtype,
+                                device=weight0.device)
+    timer = _Timer(weight0.device, return_timing)
+    weight0 = weight0.detach()
+    shape = list(weight0.shape)
+    shape[-3] = direction.shape[0]
+    lam = torch.zeros(shape, dtype=weight0.dtype, device=weight0.device,
+                      requires_grad=True)
+    losses = _adam_loop(
+        lam, lambda: torch.mean(torch.abs(
+            goal_out - window_fn(weight0 + _lift(lam, direction), goal_in))),
+        niter, lr)
+    with torch.no_grad():
+        w = weight0 + _lift(lam, direction)
+    return _finish(w, losses, timer, update_callback)
+
+
+def fast_linear_insert_solve(conv_fn: Callable, tail_fn: Callable,
+                             goal_in_bag, params, goal_out: torch.Tensor,
+                             w0: torch.Tensor, direction, scale: float,
+                             niter: int = 2001, lr: float = 0.05,
+                             use_demod: bool = False,
+                             update_callback: Optional[Callable] = None,
+                             return_timing: bool = False):
+    """``linear_insert_solve`` with the window's conv split by linearity:
+    with ``w = w0 + Λ·D``, ``conv(x, w) = conv(x, w0) + conv(D·x, Λ)``.
+    The first term is computed once; each step runs the rank-r conv, the
+    demodulation from ``style²`` (with ``use_demod``) and ``tail_fn``.
+    The same Λ and the same Adam trajectory as the direct solve, up to
+    the order of the sums.
+
+    ``conv_fn(x, kernel_oihw)`` is the window's bare linear conv of an
+    NCHW map (with its upsampling), without the weight scale or the
+    demodulation, which are applied here; ``tail_fn(params, bag)`` runs
+    the window's stages after the conv."""
+    direction = torch.as_tensor(direction, dtype=w0.dtype, device=w0.device)
+    timer = _Timer(w0.device, return_timing)
+    w0 = w0.detach()
+    w0_4d = w0[0] if w0.dim() == 5 else w0
+    x = goal_in_bag["fmap"]
+    with torch.no_grad():
+        x_d = torch.einsum("di,bihw->bdhw", direction, x)
+        base = conv_fn(x, w0_4d * scale)        # constant across the steps
+        style2 = (torch.square(goal_in_bag["style"]) if use_demod
+                  else None)                    # (B, I)
+
+    def window(lam):
+        out = base + conv_fn(x_d, lam * scale)
+        if use_demod:
+            w = w0_4d + _lift(lam, direction)
+            w_sq = torch.sum(torch.square(w * scale), dim=(-2, -1))  # (O, I)
+            out = out * torch.rsqrt(style2 @ w_sq.t() + 1e-8)[:, :, None,
+                                                                None]
+        return tail_fn(params, DataBag(goal_in_bag, fmap=out))["fmap"]
+
+    o, _, kh, kw = w0_4d.shape
+    lam = torch.zeros((o, direction.shape[0], kh, kw), dtype=w0.dtype,
+                      device=w0.device, requires_grad=True)
+    losses = _adam_loop(
+        lam, lambda: torch.mean(torch.abs(goal_out - window(lam))), niter, lr)
+    with torch.no_grad():
+        w = w0_4d + _lift(lam, direction)
+    return _finish(w[None] if w0.dim() == 5 else w, losses, timer,
+                   update_callback)

@@ -1,4 +1,4 @@
-from .running import RunningSecondMoment
+from .running import RunningMean, RunningSecondMoment
 from . import tally
 
-__all__ = ["RunningSecondMoment", "tally"]
+__all__ = ["RunningMean", "RunningSecondMoment", "tally"]

@@ -1,10 +1,11 @@
-"""Drive a compute closure over z batches into the second-moment reducer,
-with the arg-keyed npz cache.
+"""Drive a compute closure over z batches into a reducer, with the
+arg-keyed npz cache.
 
 Counterpart of the JAX package's ``stats/tally.py``: ``load_cached_state``
 and ``save_cached_state`` (:35-60) keep its file format (the state arrays
 plus the cache-key arguments as npz entries), so a cache written by either
-package loads in the other; ``tally_second_moment`` is the loop that
+package loads in the other; ``tally_mean`` is its generic host loop
+(:63-107) for the mean, and ``tally_second_moment`` the loop that
 ``tally_second_moment_scan`` (:422-460) compiles into one program there.
 """
 
@@ -16,7 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .running import RunningSecondMoment
+from .running import RunningMean, RunningSecondMoment
 
 
 def load_cached_state(cachefile: Optional[str], args: dict):
@@ -48,14 +49,35 @@ def save_cached_state(cachefile: Optional[str], obj, args: dict) -> None:
     np.savez(cachefile, **d)
 
 
+def _reduce(reducer, compute: Callable[[torch.Tensor], torch.Tensor],
+            zs: np.ndarray, batch_size: int, device):
+    """Feed ``compute(zbatch)`` of every z batch (the last one may be
+    short) to the reducer."""
+    with torch.no_grad():
+        for i in range(0, len(zs), batch_size):
+            reducer.add(compute(torch.as_tensor(zs[i:i + batch_size],
+                                                device=device)))
+    return reducer
+
+
 def tally_second_moment(rows_fn: Callable[[torch.Tensor], torch.Tensor],
                         zs: np.ndarray, batch_size: int,
                         device) -> RunningSecondMoment:
     """Uncentered second moment of ``rows_fn(zbatch)`` (rows, dim) over all
-    z, in batches of `batch_size` (the last one may be short)."""
-    r = RunningSecondMoment()
-    with torch.no_grad():
-        for i in range(0, len(zs), batch_size):
-            zb = torch.as_tensor(zs[i:i + batch_size], device=device)
-            r.add(rows_fn(zb))
+    z, in batches of `batch_size`."""
+    return _reduce(RunningSecondMoment(), rows_fn, zs, batch_size, device)
+
+
+def tally_mean(compute: Callable[[torch.Tensor], torch.Tensor], zds,
+               batch_size: int = 10, cachefile: Optional[str] = None,
+               device=None) -> RunningMean:
+    """Mean of the rows of ``compute(zbatch)`` over the z dataset, on
+    `device`; read from and saved to `cachefile`, keyed on the sample and
+    batch sizes as in the JAX package."""
+    args = {"sample_size": len(zds), "batch_size": batch_size}
+    cached = load_cached_state(cachefile, args)
+    if cached is not None:
+        return RunningMean.from_state_dict(cached, device)
+    r = _reduce(RunningMean(), compute, zds.zs, batch_size, device)
+    save_cached_state(cachefile, r, args)
     return r

@@ -1,10 +1,13 @@
-"""Painted masks from base64 PNG data URLs, PNG writing, and image
-normalisations, without PIL.
+"""Painted masks from base64 PNG data URLs, images as PNG data URLs,
+PNG writing, and image normalisations, without PIL.
 
 The port's own counterpart of the JAX package's ``utils/renormalize.py``:
-``renormalize`` (:41-49) and ``mask_from_url`` (:72-99), which decodes with
-PIL, converts to RGB, resizes with ``Image.BILINEAR`` and reads channel 0
-over 255.  PIL is not a dependency of the port, so this module carries:
+``renormalize`` (:41-49), ``as_image`` and ``as_url`` (:52-67),
+``mask_from_url`` (:72-99), which decodes with PIL, converts to RGB,
+resizes with ``Image.BILINEAR`` and reads channel 0 over 255, and
+``mask_to_url`` (:102-106).  PIL is not a dependency of the port, so an
+image here is a ``uint8 (H, W, 3)`` numpy array where the JAX package has
+a PIL image, and this module carries:
 
 - a PNG decoder (zlib + numpy): 8-bit greyscale, greyscale+alpha, RGB and
   RGBA, non-interlaced, filter types 0-4;
@@ -37,9 +40,10 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PRECISION_BITS = 32 - 8 - 2
 
 # name -> (offset, scale) per channel: value = (x - offset) / scale; the
-# generator's zero-centred output and 8-bit pixels (the JAX package has
-# more, which no code of the port reads)
+# generator's zero-centred output, [0, 1] and 8-bit pixels (the JAX
+# package has more, which no code of the port reads)
 OFFSET_SCALE = {
+    "pt": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
     "zc": ([0.5, 0.5, 0.5], [0.5, 0.5, 0.5]),
     "byte": ([0.0, 0.0, 0.0], [1 / 255.0, 1 / 255.0, 1 / 255.0]),
 }
@@ -195,7 +199,9 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
 
 def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """PIL's ``Image.resize((W, H), BILINEAR)`` of a 2-d uint8 array to
-    ``size = (H, W)``: the horizontal pass first, then the vertical."""
+    ``size = (H, W)``: the horizontal pass first, then the vertical.  (Not
+    ``utils/upsample.resize_bilinear``, the half-pixel float resize of
+    feature maps.)"""
     if img.shape[1] != size[1]:
         img = _resample_axis(img, size[1], axis=1)
     if img.shape[0] != size[0]:
@@ -212,3 +218,30 @@ def mask_from_url(url: str, size: Optional[Tuple[int, int]] = None
     if size is not None:
         red = resize_bilinear(red, tuple(size))
     return red.astype(np.float32) / 255.0
+
+
+def as_image(data, source: str = "zc") -> np.ndarray:
+    """The uint8 (H, W, C) image of an (H, W, C) array in `source`
+    normalisation."""
+    return renormalize(np.asarray(data), source, "byte")
+
+
+def as_url(data, source: str = "zc", size: Optional[Tuple[int, int]] = None
+           ) -> str:
+    """Base64 PNG data URL of an (H, W, 3) array in `source`
+    normalisation, or of a uint8 image as it is; resized to ``size = (H,
+    W)`` with PIL's BILINEAR if given."""
+    data = np.asarray(data)
+    img = data if data.dtype == np.uint8 else as_image(data, source)
+    if size is not None:
+        img = np.stack([resize_bilinear(np.ascontiguousarray(img[:, :, c]),
+                                        tuple(size))
+                        for c in range(img.shape[2])], axis=-1)
+    return "data:image/png;base64," + base64.b64encode(
+        encode_png(img)).decode("utf-8")
+
+
+def mask_to_url(mask) -> str:
+    """Data URL of an (H, W) mask in [0, 1] (to build edit requests)."""
+    arr = np.clip(np.asarray(mask, np.float32), 0, 1)
+    return as_url(np.stack([arr] * 3, axis=-1), source="pt")
