@@ -35,7 +35,23 @@ set to 0 just before it and read just after:
   seconds a step, the fast and the direct Λ·D solve held together;
 - at layer 8, ``apply_erase``, ``zero``, the svd and mean keys, the
   renders (plain, with the query key outlined, an object with its box),
-  and 201-step edits in the Pre and Tiny windows.
+  and 201-step edits in the Pre and Tiny windows;
+- ProgGAN church-256 at its published widths: seeded weights written as a
+  reference-format ``.pth`` under the old ``features.N`` names, loaded by
+  ``zoo.load_proggan`` bit for bit, the card's forward against the CPU's,
+  then ``ProgressiveGanRewriter.apply_edit`` of ProgGAN's spire2tree
+  (1000-z statistics, 2001 steps); no kernel is on this path;
+- four edit requests solved as one batch at layer 7
+  (``rewrite/multi.batch_apply_edits``, 2001 steps, one K2 forward and
+  backward a step for all four), against two of them solved alone, their
+  previews (batched and one edit at a time) and the edited params through
+  ``utils/paramio``;
+- ``InstrumentedPipeline``: layer 8's retained keys against the
+  rewriter's, a per-channel ablation against a zeroing rule;
+- the §5.2 watermark erase (``metrics/watermark.py``): statistics of the
+  truncation-1.0 model, two 2001-step erases of the truncation-0.5 one,
+  64 images; then ``python3 -m rewriting_torch.metrics.watermark`` in its
+  own process on the checkpoint file.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -96,10 +112,42 @@ EDGE_CASES = ((2, 128, 32, 32, (2, 1)), (2, 64, 33, 33, (1, 1)),
 # (I, H, O) of K1 on the church-256 path: layers 3 .. 13
 UPCONV_SHAPES = ((512, 4, 512), (512, 8, 512), (512, 16, 512),
                  (512, 32, 512), (512, 64, 256), (256, 128, 128))
+# phase 15: ProgGAN church-256's edit (no TPU kernel on its path)
+PROGGAN_MASK = os.path.join(ROOT, "notebooks", "masks", "proggan", "church",
+                            "spire2tree.json")
+PROGGAN_LAYER = 5     # the 512-channel 16x16 conv
+# phase 16: the requests solved as one batch at layer 7
+BATCH_REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
+# the batch against each edit solved alone, each held within 3x what one
+# edit alone run twice differs by, plus a floor: the final losses
+# (BATCH_LOSS_TOL, absolute) and the change each makes to the window's
+# output on its goal (the norm of the difference relative to the norm of
+# the change, BATCH_OUTPUT_FLOOR).  The
+# weights are printed, not held: element by element they differ by whole
+# Adam steps, since L1's sign and Adam's first step turn rounding in a
+# near-0 gradient into a step of lr, and cuDNN's default weight gradients
+# are not bit-reproducible, so one solve run twice differs as much
+# (scripts/probe_solve_determinism.py)
+BATCH_LOSS_TOL = 1e-4
+BATCH_OUTPUT_FLOOR = 0.05
+# phase 18: the erase's units, as the paper's watermark.sh runs it (30
+# and 60; the command line's default, 1, is one unit of the 512, and on
+# seeded weights its goal lies so near the unedited output that the
+# solve's first steps of lr raise the loss); the command line's request
+# names images below its 100 z
+WATERMARK_DRANK = 30
+WATERMARK_CLI_REQUEST = "building2sky"
 # (N, C, H, W, taps) of K3: the wide maps upsample2d sends it, and edges
 UP2_SHAPES = ((16, 512, 32, 32), (16, 256, 64, 64), (16, 128, 128, 128))
 UP2_EDGES = ((2, 64, 33, 17, (1, 3, 3, 1)), (1, 64, 5, 7, (1, 2, 1)),
              (1, 72, 9, 9, (1, 1)), (1, 64, 16, 16, (1, 2, 3, 1)))
+
+
+def sync(device) -> None:
+    """Wait for the card, where `device` is one."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def phase(name: str, t0: float) -> None:
@@ -481,6 +529,31 @@ def _decode(np, path):
         return decode_png(f.read()).astype(np.int16)
 
 
+def param_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a params tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from param_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def with_latent_avg(model, params) -> dict:
+    """The params with ``latent_avg`` set to the mean W of 4096 seeded z:
+    the truncation centre a published checkpoint carries."""
+    import torch
+
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    mapping = model.pipeline.subsequence(upto_layer="latents")
+    with torch.no_grad():
+        w = mapping(params, model.make_bag(standard_z_sample(
+            4096, model.z_dim, seed=3)))
+    written = dict(params)
+    written["latents"] = {"latent_avg": w["latent"].mean(0)}
+    return written
+
+
 def check_checkpoint_and_command_lines(model, params, workdir: str) -> dict:
     """Phase 12: write the params as a rosinality checkpoint (with the mean
     W of 4096 z as latent_avg), load it back through the zoo bit for bit,
@@ -493,14 +566,8 @@ def check_checkpoint_and_command_lines(model, params, workdir: str) -> dict:
     from rewriting_torch.metrics.sample import per_image_z
     from rewriting_torch.models.zoo import load_seq_stylegan
     from rewriting_torch.utils.renormalize import mask_from_url, renormalize
-    from rewriting_torch.utils.zdataset import standard_z_sample
 
-    mapping = model.pipeline.subsequence(upto_layer="latents")
-    with torch.no_grad():
-        w = mapping(params, model.make_bag(standard_z_sample(4096, 512,
-                                                             seed=3)))
-    written = dict(params)
-    written["latents"] = {"latent_avg": w["latent"].mean(0)}
+    written = with_latent_avg(model, params)
     weights = os.path.join(workdir, "weights")
     os.makedirs(weights)
     path = os.path.join(weights, "stylegan2_church.pt")
@@ -519,13 +586,7 @@ def check_checkpoint_and_command_lines(model, params, workdir: str) -> dict:
         else:
             os.environ["REWRITING_TPU_WEIGHTS"] = old
 
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}{k}/")
-            else:
-                yield f"{prefix}{k}", v
-    got, want = dict(leaves(loaded)), dict(leaves(written))
+    got, want = dict(param_leaves(loaded)), dict(param_leaves(written))
     if got.keys() != want.keys():
         raise AssertionError("the loaded params have other names")
     for k in got:
@@ -768,6 +829,428 @@ def check_erase_keys_renders(model, params, kblur, steps: int = 201,
     if kblur.general_launches != 0:
         raise AssertionError("phase 14 launched the general blur kernel")
     return out
+
+
+def proggan_checkpoint(model, params) -> dict:
+    """The ProgGAN params as a reference-format state dict in the old
+    ``features.N`` naming (reference utils/proggan.py:298-325), as the
+    published ``proggan_*.pth`` files hold it.  CPU tensors."""
+    import collections
+
+    def cpu(t):
+        return t.detach().cpu().clone()
+
+    blocks = list(model._conv_specs)     # layer1 .. layerN, output_DxD
+    sd = collections.OrderedDict()
+    for n, name in enumerate(blocks[:-1]):
+        sd[f"features.{n}.conv.weight"] = cpu(params[f"{name}.conv"]["weight"])
+        sd[f"features.{n}.wscale.b"] = cpu(params[f"{name}.wscale"]["bias"])
+    sd["output.conv.weight"] = cpu(params[f"{blocks[-1]}.conv"]["weight"])
+    sd["output.wscale.b"] = cpu(params[f"{blocks[-1]}.wscale"]["bias"])
+    return sd
+
+
+def check_proggan(model, workdir: str, counters, niter: int = 2001,
+                  layernum: int = PROGGAN_LAYER) -> dict:
+    """Phase 15: a ProgGAN (church-256 at its published widths) with seeded
+    weights written as a reference-format ``.pth`` under the old
+    ``features.N`` names, loaded by ``zoo.load_proggan`` bit for bit; its
+    forward on the model's device against the CPU's; then
+    ``ProgressiveGanRewriter`` at `layernum` (1000-z statistics) and the
+    spire2tree request (`niter` steps).  `counters()` reads the kernels'
+    launch counts, which must stay 0: no kernel is on this path."""
+    import torch
+
+    from rewriting_torch.models.proggan import ProgressiveGenerator
+    from rewriting_torch.models.stylegan2 import params_to
+    from rewriting_torch.models.zoo import load_proggan
+    from rewriting_torch.rewrite import ProgressiveGanRewriter
+    from rewriting_torch.rewrite.solve import projected_conv
+    from rewriting_torch.utils.zdataset import (standard_z_sample,
+                                                z_dataset_for_model)
+
+    device, resolution = model.device, model.resolution
+    params = model.init_params(seed=0)
+    nparams = sum(t.numel() for sub in params.values() for t in sub.values())
+    path = os.path.join(workdir, "proggan", "proggan_churchoutdoor.pth")
+    os.makedirs(os.path.dirname(path))
+    t1 = time.time()
+    torch.save(proggan_checkpoint(model, params), path)
+    save_s = time.time() - t1
+    t1 = time.time()
+    loaded_model, loaded = load_proggan("church", path=path, device=device)
+    load_s = time.time() - t1
+    if loaded_model.sizes != model.sizes or loaded.keys() != params.keys():
+        raise AssertionError("load_proggan built another model")
+    for stage, sub in params.items():
+        for name, t in sub.items():
+            if not torch.equal(loaded[stage][name], t):
+                raise AssertionError(f"loaded {stage}.{name} differs")
+    mb = os.path.getsize(path) / 2 ** 20
+    print(f"ProgGAN church-{resolution} {model.sizes}: {nparams} parameters, "
+          f"{mb:.1f} MiB .pth in the features.N naming saved in "
+          f"{save_s:.3f} s, loaded by zoo.load_proggan in {load_s:.3f} s, "
+          f"{2 * len(params)} tensors bit for bit")
+    z = standard_z_sample(2, model.z_dim, seed=1)
+    img = loaded_model(loaded, z)
+    cpu_model = ProgressiveGenerator(sizes=model.sizes, device="cpu")
+    img_cpu = cpu_model(params_to(loaded, "cpu"), z)
+    rel = float((img.cpu() - img_cpu).abs().max() / img_cpu.abs().max())
+    print(f"ProgGAN forward (NHWC {tuple(img.shape)}), card vs CPU: max "
+          f"diff / max |CPU| = {rel:.3e} (limit {FORWARD_RTOL})")
+    if tuple(img.shape) != (2, resolution, resolution, 3) or \
+            not rel <= FORWARD_RTOL:
+        raise AssertionError(f"ProgGAN card forward differs by {rel}")
+
+    with open(PROGGAN_MASK) as f:
+        request = json.load(f)
+    sync(device)
+    t1 = time.time()
+    rw = ProgressiveGanRewriter(loaded_model, loaded,
+                                z_dataset_for_model(loaded_model, 1000),
+                                layernum=layernum, device=device)
+    sync(device)
+    stats_s = time.time() - t1
+    w0 = rw.target_weight().clone()
+    t1 = time.time()
+    losses, solve_ms = rw.apply_edit(request, niter=niter, return_timing=True)
+    sync(device)
+    edit_s = time.time() - t1
+    d = rw.multi_key_from_selection(request.get("key", [request["paste"]]))
+    delta = rw.target_weight() - w0
+    span = float((delta - projected_conv(delta, d)).norm() / delta.norm())
+    launches = counters()
+    print(f"ProgressiveGanRewriter layer {layernum} ({rw.firstlayer}, "
+          f"window {rw.v_shape}): statistics (1000 z) {stats_s:.3f} s; "
+          f"spire2tree edit {edit_s:.3f} s, of it the {niter}-step solve "
+          f"{solve_ms / 1e3:.3f} s ({solve_ms / niter:.4f} ms a step); loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; change outside span(D) "
+          f"{span:.3e}; launches {launches}")
+    if not losses[-1] < losses[0] or not span <= SPAN_TOL:
+        raise AssertionError(f"ProgGAN edit: loss {losses[0]} -> "
+                             f"{losses[-1]}, span {span}")
+    if any(launches.values()):
+        raise AssertionError(f"the ProgGAN path launched a kernel: "
+                             f"{launches}")
+    rw.revert()
+    return {"parameters": nparams, "checkpoint_mib": mb, "save_s": save_s,
+            "load_s": load_s, "card_vs_cpu_rel": rel, "layer": layernum,
+            "stats_s": stats_s, "edit_s": edit_s, "solve_ms": solve_ms,
+            "steps": niter, "loss": [float(losses[0]), float(losses[-1])],
+            "span_rel": span, "launches": launches}
+
+
+def check_batched_edits(rw, kblur, workdir: str, steps: int = 2001,
+                        npreview: int = 8) -> dict:
+    """Phase 16, on phase 11's layer-7 rewriter `rw` (an upsampling layer:
+    the window runs K2 forward and backward): the four requests of
+    ``BATCH_REQUESTS`` solved as one batch by ``batch_apply_edits``
+    (`steps` steps), against the first and last solved one at a time by
+    ``fast_linear_insert``, each twice; their previews at `npreview` z,
+    batched and one edit at a time; the edited params through
+    ``paramio``.  Returns the phase's numbers; raises on any failure."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.core import DataBag
+    from rewriting_torch.rewrite.multi import (batch_apply_edits,
+                                               build_goals, preview_edits)
+    from rewriting_torch.rewrite.solve import projected_conv
+    from rewriting_torch.utils.paramio import load_params, save_params
+
+    requests = []
+    for name in BATCH_REQUESTS:
+        with open(os.path.join(MASKS, "church", f"{name}.json")) as f:
+            requests.append(json.load(f))
+    edits = len(requests)
+    rw.revert()
+    w0 = rw.target_weight().clone()
+    kblur.launches = kblur.backward_launches = kblur.general_launches = 0
+    goals = build_goals(rw, requests)
+    goal_launches = kblur.launches
+    kblur.launches = kblur.backward_launches = kblur.general_launches = 0
+    sync(rw.device)
+    t1 = time.time()
+    weights, losses, batch_ms = batch_apply_edits(rw, requests, niter=steps,
+                                                  return_timing=True)
+    sync(rw.device)
+    batch_s = time.time() - t1
+    # the goals again, each edit's unedited window output (out0) and the
+    # one window forward at Λ = 0 that anchors the loop; the rest is the loop
+    loop_fwd = kblur.launches - goal_launches - edits - 1
+    batch_k2 = [kblur.launches, kblur.backward_launches,
+                kblur.general_launches]
+    print(f"batch_apply_edits, {edits} requests ({', '.join(BATCH_REQUESTS)})"
+          f" at {rw.firstlayer}, {steps} steps: {batch_s:.3f} s, of it the "
+          f"solve {batch_ms / 1e3:.3f} s ({batch_ms / steps:.4f} ms a step); final "
+          f"losses {np.array2string(losses, precision=6)}; K2 launches "
+          f"{batch_k2[0]} forward ({goal_launches} for the goals, {edits + 1} "
+          f"for the unedited outputs and the anchor, {loop_fwd} in the loop), "
+          f"{batch_k2[1]} backward, general {batch_k2[2]}")
+    if loop_fwd != steps or batch_k2[1] != steps or batch_k2[2] != 0:
+        raise AssertionError(f"the batch launched K2 {loop_fwd} times "
+                             f"forward and {batch_k2[1]} backward in its "
+                             f"{steps}-step loop, want {steps} each")
+    if not torch.equal(rw.target_weight(), w0):
+        raise AssertionError("batch_apply_edits changed the rewriter's "
+                             "params")
+    rows = []
+    for i in (0, edits - 1):
+        gin, gout, d = goals[i]
+        runs = []
+        for _ in range(2):
+            rw.revert()
+            seq_losses, ms = rw.fast_linear_insert(
+                gin, DataBag(gin, fmap=gout), d, niter=steps,
+                return_timing=True)
+            runs.append((rw.target_weight().clone(), seq_losses, ms))
+        rw.revert()
+        (w_a, l_a, ms_a), (w_b, l_b, ms_b) = runs
+        itself = float((w_a - w_b).abs().max())
+        lself = float(abs(l_a[-1] - l_b[-1]))
+        wdiff = float((weights[i] - w_a).abs().max())
+        wrel = float((weights[i] - w_a).norm() / (w_a - w0).norm())
+        ldiff = float(abs(losses[i] - l_a[-1]))
+        with torch.no_grad():
+            y0, ya, ya2, yb = (rw._window_fn(w, (gin, rw.params))
+                               for w in (w0, w_a, w_b, weights[i]))
+        orel = float((yb - ya).norm() / (ya - y0).norm())
+        oself = float((ya2 - ya).norm() / (ya - y0).norm())
+        delta = weights[i] - w0
+        span = float((delta - projected_conv(delta, d)).norm() / delta.norm())
+        rows.append({"edit": BATCH_REQUESTS[i], "final_loss_abs": ldiff,
+                     "single_vs_itself_final_loss_abs": lself,
+                     "output_rel": orel, "single_vs_itself_output_rel": oself,
+                     "weights_max_abs": wdiff,
+                     "weights_rel": wrel, "single_vs_itself_max_abs": itself,
+                     "span_rel": span,
+                     "single_ms_per_step": [ms_a / steps, ms_b / steps]})
+        print(f"  {BATCH_REQUESTS[i]}: fast_linear_insert alone "
+              f"{ms_a / steps:.4f} / {ms_b / steps:.4f} ms a step; final loss "
+              f"{l_a[-1]:.6f} / {l_b[-1]:.6f}, the batch's {losses[i]:.6f} "
+              f"({ldiff:.3e} apart; limit 3x the two runs' {lself:.3e} + "
+              f"{BATCH_LOSS_TOL}); the window's output on the goal, "
+              f"|diff| / |change by the edit|: batch vs alone {orel:.3e}, "
+              f"alone vs alone run again {oself:.3e} (limit 3x that + "
+              f"{BATCH_OUTPUT_FLOOR}); weights batch vs alone: max abs "
+              f"diff {wdiff:.3e}, |diff| / |edit| {wrel:.3e}; alone vs alone: "
+              f"max abs diff {itself:.3e}; batch change outside span(D) "
+              f"{span:.3e}")
+        if not ldiff <= 3 * lself + BATCH_LOSS_TOL or \
+                not span <= SPAN_TOL or \
+                not orel <= 3 * oself + BATCH_OUTPUT_FLOOR:
+            raise AssertionError(f"batch edit {i}: final loss {ldiff} from "
+                                 f"the single solve's, output {orel} of the "
+                                 f"edit's change, span {span}")
+    single_ms = float(np.mean([r["single_ms_per_step"] for r in rows]))
+    print(f"ms a step: the {edits}-edit batch {batch_ms / steps:.4f}, one "
+          f"edit alone {single_ms:.4f} ({batch_ms / steps / single_ms:.2f}x "
+          f"for {edits}x the edits)")
+
+    zs = rw.zds.zs[:npreview]
+    previews = {}
+    for batched in (True, False):
+        kblur.launches = kblur.general_launches = 0
+        sync(rw.device)
+        t1 = time.time()
+        images = preview_edits(rw, weights, zs, batched=batched)
+        previews[batched] = (images, time.time() - t1, kblur.launches)
+    (pv, pv_s, pv_k2), (p1, p1_s, p1_k2) = previews[True], previews[False]
+    size = rw.x_shape[1]
+    rel = float(np.abs(pv - p1).max() / np.abs(p1).max())
+    print(f"preview_edits {edits} edits x {npreview} z -> {pv.shape}: batched "
+          f"{pv_s:.3f} s, K2 {pv_k2} launches; one edit at a time {p1_s:.3f} "
+          f"s, K2 {p1_k2} launches; max diff / max = {rel:.3e} (limit "
+          f"{FORWARD_RTOL})")
+    if pv.shape != (edits, npreview, size, size, 3) or \
+            not np.isfinite(pv).all() or not rel <= FORWARD_RTOL:
+        raise AssertionError(f"previews {pv.shape}, {rel} apart")
+    if not 0 < pv_k2 < p1_k2 or kblur.general_launches != 0:
+        raise AssertionError(f"preview K2 launches {pv_k2} batched, "
+                             f"{p1_k2} one at a time")
+
+    stage = rw.weight_stage()
+    edited = dict(rw.params)
+    edited[stage] = {**edited[stage], "weight": weights[0]}
+    path = os.path.join(workdir, "batch", "edited.npz")
+    t1 = time.time()
+    save_params(path, edited)
+    back = load_params(path, device=rw.device)
+    io_s = time.time() - t1
+    got, want = dict(param_leaves(back)), dict(param_leaves(edited))
+    nleaves = len(want)
+    if got.keys() != want.keys() or any(
+            got[k].device != t.device or not torch.equal(got[k], t)
+            for k, t in want.items()):
+        raise AssertionError("the paramio round trip changed the params")
+    mb = os.path.getsize(path) / 2 ** 20
+    print(f"paramio: the edited params ({mb:.1f} MiB npz, {nleaves} "
+          f"tensors) saved and loaded back in {io_s:.3f} s, bit for bit")
+    return {"edits": edits, "steps": steps, "batch_s": batch_s,
+            "batch_ms_per_step": batch_ms / steps,
+            "single_ms_per_step": single_ms,
+            "final_losses": [float(v) for v in losses],
+            "k2_loop": [loop_fwd, batch_k2[1]], "k2_batch_total": batch_k2,
+            "k2_goals": goal_launches, "vs_single": rows,
+            "preview_s": [pv_s, p1_s], "preview_k2": [pv_k2, p1_k2],
+            "preview_rel": rel, "paramio_s": io_s, "paramio_mib": mb}
+
+
+def check_instrumented(model, params, rw8, kblur, nz: int = 8) -> dict:
+    """Phase 17: ``InstrumentedPipeline`` over the church-256 model: the
+    retained context of layer 8 against the rewriter's ``context_acts``
+    there (phase 5's rewriter `rw8`), the forward against the seq
+    pipeline's, and a per-channel ablation of 1.0 with replacement 0
+    against a zeroing rule; K2 launches per forward."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.core.instrument import InstrumentedPipeline
+
+    inst = InstrumentedPipeline(model, params)
+    layer = rw8.context_pipe.stage_names()[-1]    # the last stage before
+    inst.retain_layer(layer)                      # the window: its keys
+    zs = rw8.zds.zs[:nz]
+    kblur.launches = kblur.general_launches = 0
+    sync(model.device)
+    t1 = time.time()
+    out = inst(zs)
+    sync(model.device)
+    fwd_s = time.time() - t1
+    launches = kblur.launches
+    # row 0: a batch's noise inputs are prefix-stable
+    got = inst.retained_layer(layer)["fmap"][:1]
+    want = rw8.context_acts(rw8.context_of(0))
+    kdiff = float((got - want).abs().max() / want.abs().max())
+    seq = model(params, zs, fast=False)
+    odiff = float((out - seq).abs().max() / seq.abs().max())
+    block = rw8.lastlayer.rsplit(".", 1)[0]     # the window's layer
+    channels = params[f"{block}.activate"]["bias"].shape[0]
+    inst.edit_layer(block, ablation=np.ones(channels, np.float32),
+                    replacement=np.zeros(channels, np.float32))
+    ablated = inst(zs)
+    inst.edit_layer(block, rule=lambda x: x * 0.0)
+    zeroed = inst(zs)
+    adiff = float((ablated - zeroed).abs().max())
+    moved = float((zeroed - out).abs().mean())
+    print(f"InstrumentedPipeline church-256, {nz} z: forward {fwd_s:.3f} s "
+          f"with {launches} K2 launches; retained {layer} {tuple(got.shape)} "
+          f"(NHWC) vs the layer-8 rewriter's context_acts: max diff / max "
+          f"{kdiff:.3e}; output vs the seq pipeline {odiff:.3e} (limit "
+          f"{FORWARD_RTOL}); per-channel ablation 1.0 / replacement 0 of "
+          f"{block} ({channels} channels) vs a zeroing rule: max diff "
+          f"{adiff:.3e}, mean change of the image {moved:.4f}")
+    if not max(kdiff, odiff) <= FORWARD_RTOL or adiff > 1e-6 or \
+            not moved > 0:
+        raise AssertionError(f"instrumented forward: keys {kdiff}, output "
+                             f"{odiff}, ablation {adiff}, change {moved}")
+    if launches <= 0 or kblur.general_launches != 0:
+        raise AssertionError(f"instrumented forward K2 launches {launches}, "
+                             f"general {kblur.general_launches}")
+    return {"forward_s": fwd_s, "k2_per_forward": launches,
+            "keys_rel": kdiff, "output_rel": odiff, "ablation_abs": adiff}
+
+
+def check_watermark(model, params, workdir: str, kblur, steps: int = 2001,
+                    nimages: int = 64, layer: int = 6) -> dict:
+    """Phase 18: the §5.2 watermark erase on church-256 (`params` with a
+    latent_avg): the key statistics from the truncation-1.0 `model`, the
+    erase (``multikey_markandbottom``, ``ours`` with ``WATERMARK_DRANK``
+    units, two repetitions of `steps` steps) on a truncation-0.5 model,
+    `nimages` images of the erased model written by ``save_zds_images``."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.metrics.watermark import (erase_watermark,
+                                                   save_zds_images)
+    from rewriting_torch.models.stylegan2 import SeqStyleGAN2
+    from rewriting_torch.rewrite import SeqStyleGanRewriter
+    from rewriting_torch.utils.renormalize import renormalize
+
+    with open(os.path.join(MASKS, "church",
+                           "multikey_markandbottom.json")) as f:
+        request = json.load(f)
+    model05 = SeqStyleGAN2(model.size, style_dim=model.style_dim,
+                           n_mlp=model.n_mlp, truncation=0.5,
+                           device=model.device)
+    outdir = os.path.join(workdir, "watermark")
+    losses = {}
+    kblur.launches = kblur.general_launches = 0
+    sync(model.device)
+    t1 = time.time()
+    gw = erase_watermark(
+        model05, params, params, request, layer, outdir, niters=steps,
+        nreps=2, drank=WATERMARK_DRANK, erasemethod="ours",
+        sample_size=1000, save_images=False,
+        covariance_model=model,
+        update_callback=lambda r, i, l: losses.setdefault(r, []).append(
+            float(l)))
+    sync(model.device)
+    erase_s = time.time() - t1
+    erase_k2 = kblur.launches
+    t1 = time.time()
+    imgdir = os.path.join(outdir, "images")
+    save_zds_images(imgdir, model05, gw.params, gw.zds, indices=range(nimages))
+    save_s = time.time() - t1
+    names = [n for n in os.listdir(imgdir) if n.endswith(".png")]
+    probe = nimages - 1
+    direct = renormalize(np.clip(model05(gw.params, gw.zds.zs[probe:probe + 1])
+                                 [0].cpu().numpy(), -1, 1), "zc", "byte")
+    lsb = int(np.abs(_decode(np, os.path.join(imgdir, f"image_{probe}.png"))
+                     - direct.astype(np.int16)).max())
+    # the statistics are the truncation-1.0 model's, not the erased one's
+    c05 = SeqStyleGanRewriter(model05, params, gw.zds, layer,
+                              device=model.device).c_matrix
+    crel = float((c05 - gw.c_matrix).norm() / gw.c_matrix.norm())
+    first, last = losses[0][0], losses[max(losses)][-1]
+    print(f"erase_watermark church-256 layer {layer}, ours, drank "
+          f"{WATERMARK_DRANK}, 2 x {steps} "
+          f"steps: {erase_s:.3f} s (statistics of both models included), K2 "
+          f"{erase_k2} launches; loss rep 0 {losses[0][0]:.6f} -> "
+          f"{losses[0][-1]:.6f}, rep 1 {losses[1][0]:.6f} -> "
+          f"{losses[1][-1]:.6f}; {len(names)} images in {save_s:.3f} s, "
+          f"image {probe} within {lsb} LSB of a direct render; the moment "
+          f"of the truncation-0.5 model is {crel:.3e} (relative) from the "
+          f"one used")
+    if len(losses) != 2 or not last < first or \
+            not np.isfinite(losses[0] + losses[1]).all():
+        raise AssertionError(f"the erase's loss went {first} -> {last}")
+    if len(names) != nimages or lsb > 1 or not crel > 0:
+        raise AssertionError(f"{len(names)} images, {lsb} LSB, moments "
+                             f"{crel} apart")
+    if kblur.general_launches != 0:
+        raise AssertionError("the erase launched K2's general kernel")
+    return {"erase_s": erase_s, "save_s": save_s, "k2": erase_k2,
+            "loss": {r: [v[0], v[-1]] for r, v in losses.items()},
+            "lsb": lsb, "moment_rel": crel}
+
+
+def check_watermark_command_line(workdir: str) -> dict:
+    """Phase 18, then: ``python3 -m rewriting_torch.metrics.watermark``
+    (its defaults, drank 1) in its own process on phase 12's checkpoint
+    file in `workdir`; 100 images and the done marker."""
+    env = dict(os.environ, REWRITING_TPU_WEIGHTS=os.path.join(workdir,
+                                                               "weights"),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli_dir = os.path.join(workdir, "watermark_cli")
+    os.makedirs(cli_dir)
+    args = ["--request", WATERMARK_CLI_REQUEST, "--requestdir",
+            os.path.join(ROOT, "notebooks", "masks"), "--sample_size", "100",
+            "--niters", "201"]
+    cli = run_cli("rewriting_torch.metrics.watermark", args, cli_dir, env)
+    done = os.path.join(cli_dir, "results", "watermark",
+                        f"erase-stylegan-church-{WATERMARK_CLI_REQUEST}-6-1-"
+                        "201-0.05-ours-1-2")
+    pngs = [n for n in os.listdir(os.path.join(done, "images"))
+            if n.endswith(".png")]
+    print(f"  {len(pngs)} PNGs and done.txt; K2 launches {cli['k2']}, "
+          f"backward {cli['k2_backward']} (general {cli['k2_general']})")
+    if not os.path.isfile(os.path.join(done, "done.txt")) or \
+            len(pngs) != 100 or cli["k2_general"] != 0:
+        raise AssertionError(f"the watermark command line wrote {len(pngs)} "
+                             f"images: {cli}")
+    return cli
 
 
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
@@ -1043,7 +1526,7 @@ def main() -> int:
     t0 = time.time()
     kblur.launches = kblur.general_launches = 0
     kup2.launches = kup2.general_launches = 0
-    loop, _ = run_edit_loop(model, params, niter=2001)
+    loop, rw8 = run_edit_loop(model, params, niter=2001)
     k3_on_models = [kup2.launches, kup2.general_launches]
     kernels["blur2d"]["launches"] = kblur.launches
     kernels["blur2d"]["general_launches"] = kblur.general_launches
@@ -1382,44 +1865,100 @@ def main() -> int:
         raise AssertionError("a model path launched K3's general kernel")
     phase("11 edit at layer 7", t0)
 
-    # 12. a checkpoint file, then the samplers' command lines on it ----------
-    t0 = time.time()
-    kup2.launches = kup2.general_launches = 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
-        cli = check_checkpoint_and_command_lines(model, params, workdir)
-    for run in (cli["sample_cli"], cli["sample_edited_cli"]):
-        k3_on_models[0] += run["k3"]
-    kernels["blur2d"]["command_line_launches"] = {
-        "sample": cli["sample_cli"]["k2"],
-        "sample_edited": cli["sample_edited_cli"]["k2"],
-        "sample_edited_backward": cli["sample_edited_cli"]["k2_backward"]}
-    print(json.dumps({"command_lines": cli}))
-    phase("12 checkpoint and command lines", t0)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_work_")
+    try:
+        # 12. a checkpoint file, then the samplers' command lines on it ------
+        t0 = time.time()
+        kup2.launches = kup2.general_launches = 0
+        cli = check_checkpoint_and_command_lines(model, params, work.name)
+        for run in (cli["sample_cli"], cli["sample_edited_cli"]):
+            k3_on_models[0] += run["k3"]
+        kernels["blur2d"]["command_line_launches"] = {
+            "sample": cli["sample_cli"]["k2"],
+            "sample_edited": cli["sample_edited_cli"]["k2"],
+            "sample_edited_backward": cli["sample_edited_cli"]["k2_backward"]}
+        print(json.dumps({"command_lines": cli}))
+        phase("12 checkpoint and command lines", t0)
 
-    # 13. the server's solves at layer 7, on phase 11's rewriter -------------
-    t0 = time.time()
-    solves = check_server_solves(rw7, kblur, loop7)
-    del rw7
-    kernels["blur2d"]["server_solve_launches"] = {
-        name: [solves[name]["k2"], solves[name]["k2_backward"]]
-        for name in ("linear_insert", "fast_linear_insert")}
-    print(json.dumps({"server_solves": solves}))
-    phase("13 server solves at layer 7", t0)
+        # 13. the server's solves at layer 7, on phase 11's rewriter ---------
+        t0 = time.time()
+        solves = check_server_solves(rw7, kblur, loop7)
+        kernels["blur2d"]["server_solve_launches"] = {
+            name: [solves[name]["k2"], solves[name]["k2_backward"]]
+            for name in ("linear_insert", "fast_linear_insert")}
+        print(json.dumps({"server_solves": solves}))
+        phase("13 server solves at layer 7", t0)
 
-    # 14. erase, keys and renders at layer 8 ----------------------------------
-    t0 = time.time()
-    erase = check_erase_keys_renders(model, params, kblur)
-    kernels["blur2d"]["erase_render_launches"] = erase["k2"]
-    k3_on_models[0] += kup2.launches
-    k3_on_models[1] += kup2.general_launches
-    print(json.dumps({"erase_keys_renders": erase}))
-    print(f"upsample2x launches on phases 12-14: {kup2.launches} in this "
-          f"process, of the general kernel {kup2.general_launches}")
-    if kup2.general_launches != 0:
-        raise AssertionError("phases 12-14 launched K3's general kernel")
-    phase("14 erase, keys and renders", t0)
+        # 14. erase, keys and renders at layer 8 ------------------------------
+        t0 = time.time()
+        erase = check_erase_keys_renders(model, params, kblur)
+        kernels["blur2d"]["erase_render_launches"] = erase["k2"]
+        k3_on_models[0] += kup2.launches
+        k3_on_models[1] += kup2.general_launches
+        print(json.dumps({"erase_keys_renders": erase}))
+        print(f"upsample2x launches on phases 12-14: {kup2.launches} in this "
+              f"process, of the general kernel {kup2.general_launches}")
+        if kup2.general_launches != 0:
+            raise AssertionError("phases 12-14 launched K3's general kernel")
+        phase("14 erase, keys and renders", t0)
 
-    # 15. kernels line, 16. result -------------------------------------------------
+        # 15. ProgGAN church-256: checkpoint, forward, edit (no kernel) -------
+        t0 = time.time()
+
+        def counts():
+            return {"k1": kup.launches, "k2": kblur.launches,
+                    "k2_backward": kblur.backward_launches,
+                    "k2_general": kblur.general_launches,
+                    "k3": kup2.launches, "k3_general": kup2.general_launches}
+        kup.launches = kup2.launches = kup2.general_launches = 0
+        kblur.launches = kblur.backward_launches = 0
+        kblur.general_launches = 0
+        from rewriting_torch.models.proggan import ProgressiveGenerator
+        pg = check_proggan(ProgressiveGenerator(resolution=256,
+                                                device="cuda"),
+                           work.name, counts)
+        for name in ("blur2d", "upconv_blur", "upsample2x"):
+            kernels[name]["proggan_launches"] = 0
+        print(json.dumps({"proggan": pg}))
+        phase("15 ProgGAN church-256 checkpoint and edit", t0)
+
+        # 16. four edits as one batch at layer 7, previews, paramio ----------
+        t0 = time.time()
+        batch = check_batched_edits(rw7, kblur, work.name)
+        del rw7
+        kernels["blur2d"]["batch_solve_launches"] = batch["k2_loop"]
+        kernels["blur2d"]["preview_launches"] = {
+            "batched": batch["preview_k2"][0],
+            "one_edit_at_a_time": batch["preview_k2"][1]}
+        print(json.dumps({"batched_edits": batch}))
+        phase("16 batched edits at layer 7", t0)
+
+        # 17. the instrumented forward -------------------------------------
+        t0 = time.time()
+        instrumented = check_instrumented(model, params, rw8, kblur)
+        del rw8
+        kernels["blur2d"]["instrumented_forward_launches"] = \
+            instrumented["k2_per_forward"]
+        print(json.dumps({"instrumented": instrumented}))
+        phase("17 instrumented forward", t0)
+
+        # 18. the watermark erase, in this process and as a command line ----
+        t0 = time.time()
+        mark = check_watermark(model, with_latent_avg(model, params),
+                               work.name, kblur)
+        mark["cli"] = check_watermark_command_line(work.name)
+        kernels["blur2d"]["watermark_launches"] = {
+            "erase": mark["k2"], "command_line": mark["cli"]["k2"],
+            "command_line_backward": mark["cli"]["k2_backward"]}
+        k3_on_models[0] += kup2.launches + mark["cli"]["k3"]
+        if kup2.general_launches != 0:
+            raise AssertionError("phases 15-18 launched K3's general kernel")
+        print(json.dumps({"watermark": mark}))
+        phase("18 watermark erase", t0)
+    finally:
+        work.cleanup()
+
+    # 19. kernels line, 20. result -------------------------------------------------
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("blur2d", "upconv_blur", "upsample2x")]}))
     print(f"card: {card}")

@@ -1,9 +1,12 @@
-"""Carry one set of StyleGAN2 weights between the JAX package and the port.
+"""Carry one set of StyleGAN2 or ProgGAN weights between the JAX package
+and the port.
 
 The JAX package's parameter tree, given as nested dicts of numpy arrays,
-uses the same stage names and torch-order weights as the port; only the
-const input (NHWC ``(1, 4, 4, C)`` there, ``(1, C, 4, 4)`` here) and the
-noise buffers (``(1, h, w, 1)`` there, ``(1, 1, h, w)`` here) change layout.
+uses the same stage names and torch-order weights as the port.  For
+StyleGAN2 only the const input (NHWC ``(1, 4, 4, C)`` there, ``(1, C, 4,
+4)`` here) and the noise buffers (``(1, h, w, 1)`` there, ``(1, 1, h, w)``
+here) change layout; a ProgGAN tree (OIHW conv weights and biases only)
+carries across as it is.
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
+from .proggan import ProgressiveGenerator
 from .stylegan2 import SeqStyleGAN2
 
-__all__ = ["SeqStyleGAN2"]
+__all__ = ["ProgressiveGenerator", "SeqStyleGAN2"]

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
+from ..ops.grouped import folded, side_by_side
 from ..ops.upfirdn2d import apply_blur, blur_taps
 from ..ops.precision import apply_parity_tier
 from ..ops.upconv_blur import (fused_epilogue_active, fused_upconv_active,
@@ -150,18 +151,41 @@ def _apply_style(params, d: DataBag) -> DataBag:
     return DataBag(d, fmap=d["style"][:, :, None, None] * d["fmap"])
 
 
+def modconv_linear(x: torch.Tensor, w: torch.Tensor, upsample: bool,
+                   kernel_size: int, groups: int = 1) -> torch.Tensor:
+    """The dconv's bare linear conv of an NCHW map by an OIHW weight: at an
+    upsampling layer the stride-2 transposed conv (output 2H+1; == the
+    lhs-dilated conv with the flipped kernel and k-1 padding of the JAX
+    package, :186-202), else the padded conv.  With ``groups`` = G the map
+    holds G maps side by side (B, G·I, H, W) and `w` their G kernels (G·O,
+    I, k, k) (``ops/grouped.py``)."""
+    if not upsample:
+        return F.conv2d(x, w, padding=kernel_size // 2, groups=groups)
+    go, i, kh, kw = w.shape
+    o = go // groups
+    # conv_transpose2d's grouped weight is (G·I, O, k, k)
+    wt = w.reshape(groups, o, i, kh, kw).transpose(1, 2).reshape(
+        groups * i, o, kh, kw)
+    return F.conv_transpose2d(x, wt, stride=2, groups=groups)
+
+
 def _make_dconv(in_c, kernel_size, upsample):
     scale = 1.0 / math.sqrt(in_c * kernel_size ** 2)
 
     def fn(params, d: DataBag) -> DataBag:
-        w = params["weight"][0] * scale          # (O, I, kh, kw)
+        # (G, O, I, kh, kw): G = 1, or G edits of the weight over a bag
+        # folded edit-major (ops/grouped.py)
+        weight = params["weight"]
         x = d["fmap"]
-        if upsample:
-            # == the lhs-dilated conv with the flipped kernel and k-1
-            # padding of the JAX package (:186-202); output 2H+1
-            out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+        g = weight.shape[0]
+        if g == 1:
+            w = weight[0] * scale
+            out = modconv_linear(x, w, upsample, kernel_size)
         else:
-            out = F.conv2d(x, w, padding=kernel_size // 2)
+            w = weight * scale
+            out = folded(modconv_linear(
+                side_by_side(x, g), w.reshape((-1,) + tuple(w.shape[2:])),
+                upsample, kernel_size, groups=g), g)
         # demod applied after the conv so the conv stays a plain linear map
         demod = _demod(w, d["style"])
         return DataBag(d, fmap=out * demod[:, :, None, None])
@@ -170,9 +194,15 @@ def _make_dconv(in_c, kernel_size, upsample):
 
 def _demod(w, style):
     """rsqrt(sum_{I,kh,kw} (scale*W*style)^2 + 1e-8) per (B, O), from the
-    scaled (O, I, kh, kw) weight."""
-    w_sq = torch.sum(w * w, dim=(-2, -1))    # (O, I)
-    return torch.rsqrt((style * style) @ w_sq.t() + 1e-8)
+    scaled (O, I, kh, kw) weight; from a (G, O, I, kh, kw) stack, per
+    (G·B, O) of a batch folded edit-major."""
+    w_sq = torch.sum(w * w, dim=(-2, -1))    # (O, I) or (G, O, I)
+    if w_sq.dim() == 2:
+        return torch.rsqrt((style * style) @ w_sq.t() + 1e-8)
+    g = w_sq.shape[0]
+    s2 = (style * style).reshape(g, -1, style.shape[-1])
+    return torch.rsqrt(torch.bmm(s2, w_sq.transpose(1, 2)) + 1e-8).reshape(
+        -1, w_sq.shape[1])
 
 
 def _make_blur(blur_kernel, pad, upsample_factor):

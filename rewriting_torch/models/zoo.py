@@ -1,9 +1,11 @@
-"""The published StyleGAN2 checkpoints, loaded from local files.
+"""The published StyleGAN2 and ProgGAN checkpoints, loaded from local
+files.
 
-The port's counterpart of the StyleGAN2 part of the JAX package's
-``models/zoo.py`` (:1-118): the reference's table of eight rosinality
-checkpoints (reference utils/stylegan2/__init__.py:17-47) and a loader
-that turns one into ``(SeqStyleGAN2, params)``.
+The port's counterpart of the JAX package's ``models/zoo.py``: the
+reference's table of eight rosinality StyleGAN2 checkpoints (reference
+utils/stylegan2/__init__.py:17-47) and of eight ProgGAN checkpoints
+(reference utils/proggan.py:8-30), and loaders that turn one into
+``(SeqStyleGAN2, params)`` or ``(ProgressiveGenerator, params)``.
 
 A checkpoint is looked up at ``path`` if given, else as its file name in
 ``$REWRITING_TPU_WEIGHTS`` (the variable the JAX package reads, so the two
@@ -11,19 +13,23 @@ share one weights directory), else in ``~/.cache/rewriting_torch``.  The
 port downloads nothing: a missing file raises ``FileNotFoundError`` naming
 the file, the directory and the URL to fetch it from.
 
-Files are read with ``torch.load(weights_only=True)``: a rosinality file
-is dicts of tensors, which that unpickler reads without running code.  A
-file that holds other objects makes it raise; no published file has been
-tried yet (none is in the repository).
+Files are read with ``torch.load(weights_only=True)``, which runs no code
+from the file: it rebuilds tensors, containers and scalars, and here also
+``argparse.Namespace``, which a rosinality training checkpoint keeps under
+``args`` beside ``g_ema`` (``SAFE_GLOBALS``).  Any other object in a file
+makes it raise; no published file has been tried yet (none is in the
+repository).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Optional, Tuple
 
 import torch
 
+from . import proggan
 from .stylegan2 import SeqStyleGAN2, params_from_state_dict
 
 # name -> (filename, size) (reference utils/stylegan2/__init__.py:18-29)
@@ -38,6 +44,23 @@ STYLEGAN2_ZOO = {
     "places": ("stylegan2_places.pt", 256),
 }
 STYLEGAN2_URL = "https://rewriting.csail.mit.edu/models/"
+
+# domain -> filename (reference utils/proggan.py:12-21)
+PROGGAN_ZOO = {
+    "bedroom": "proggan_bedroom-d8a89ff1.pth",
+    "church": "proggan_churchoutdoor-7e701dd5.pth",
+    "conferenceroom": "proggan_conferenceroom-21e85882.pth",
+    "diningroom": "proggan_diningroom-3aa0ab80.pth",
+    "kitchen": "proggan_kitchen-67f1e16c.pth",
+    "livingroom": "proggan_livingroom-5ef336dd.pth",
+    "restaurant": "proggan_restaurant-b8578299.pth",
+    "celebhq": "proggan_celebhq-620d161c.pth",
+}
+PROGGAN_URL = "http://gandissect.csail.mit.edu/models/"
+
+# the non-tensor types a checkpoint may hold: rosinality's training
+# script saves its argparse.Namespace as "args"
+SAFE_GLOBALS = (argparse.Namespace,)
 
 
 def weights_dir() -> str:
@@ -59,8 +82,9 @@ def _resolve(filename: str, url_base: str, path: Optional[str]) -> str:
 
 
 def load_state(path: str) -> dict:
-    """The checkpoint's dicts of CPU tensors."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The checkpoint's dicts of CPU tensors (and any ``SAFE_GLOBALS``)."""
+    with torch.serialization.safe_globals(list(SAFE_GLOBALS)):
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_seq_stylegan(category: str, path: Optional[str] = None,
@@ -74,3 +98,36 @@ def load_seq_stylegan(category: str, path: Optional[str] = None,
     model = SeqStyleGAN2(size=size or default_size, style_dim=512, n_mlp=8,
                          truncation=truncation, device=device)
     return model, params_from_state_dict(model, sd)
+
+
+def load_proggan(domain: str, path: Optional[str] = None, device=None
+                 ) -> Tuple[proggan.ProgressiveGenerator, dict]:
+    """(model, params) of a published ProgGAN checkpoint, on ``device``
+    (default ``cuda``).  A file that wraps its weights in ``state_dict``
+    or names them in the old ``features.N`` style loads as well."""
+    sd = load_state(_resolve(PROGGAN_ZOO[domain], PROGGAN_URL, path))
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    if "features.0.conv.weight" in sd:
+        sd = _proggan_from_old_names(sd)
+    return proggan.from_state_dict(sd, device=device)
+
+
+def _proggan_from_old_names(sd: dict) -> dict:
+    """The ``layerN``/``output_DxD`` names of a state dict in the old
+    ``features.N`` naming (reference proggan.py:298-325)."""
+    out = {}
+    i = 0
+    while f"features.{i}.conv.weight" in sd:
+        out[f"layer{i + 1}.conv.weight"] = sd[f"features.{i}.conv.weight"]
+        out[f"layer{i + 1}.wscale.b"] = sd[f"features.{i}.wscale.b"]
+        i += 1
+    res = 4 * (2 ** ((i - 1) // 2))
+    out[f"output_{res}x{res}.conv.weight"] = sd["output.conv.weight"]
+    out[f"output_{res}x{res}.wscale.b"] = sd["output.wscale.b"]
+    return out
+
+
+def load_pretrained(domain: str, **kwargs):
+    """The reference's name for ``load_proggan`` (proggan.py:8)."""
+    return load_proggan(domain, **kwargs)

@@ -2,9 +2,10 @@
 memory and rewrite it with a rank-constrained weight edit.
 
 Counterpart of the JAX package's ``rewrite/rewriter.py``: ``GanRewriter``
-(:42-694), ``SeqStyleGanRewriter`` (:718-799) and its Tiny and Pre
-variants (:801-857).  Ported: the three-way split, the shape probe, the
-key second moment and its ZCA; the query key and the ``zca``, ``svd`` and
+(:42-694), ``ProgressiveGanRewriter`` (:697-716), ``SeqStyleGanRewriter``
+(:718-799) and its Tiny and Pre variants (:801-857).  Ported: the
+three-way split, the shape probe, the key second moment and its ZCA; the
+query key and the ``zca``, ``svd`` and
 ``mean`` context directions; the pasted goal (tight or whole-map, with or
 without the object's alpha) and the erase goal with its normdissect
 units; the three solves (projected Adam, with or without its gradient
@@ -39,10 +40,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core import DataBag
-from ..models.stylegan2 import params_to
+from ..models.proggan import conv2d_grouped
+from ..models.stylegan2 import modconv_linear, params_to
 from ..ops import precision
 from ..stats import running, tally
 from ..utils import imgviz, renormalize
@@ -62,7 +63,7 @@ def _check_key_method(key_method: str) -> None:
         raise NotImplementedError(
             "key_method 'gandissect' needs the per-unit quantile sketch "
             "(tally_quantile), which is not ported yet (ROADMAP.md queue "
-            "1, item 7)")
+            "1, item 5)")
     if key_method not in KEY_METHODS:
         raise ValueError(f"key_method {key_method!r}: one of {KEY_METHODS}")
 
@@ -574,6 +575,27 @@ class GanRewriter:
         return out
 
 
+class ProgressiveGanRewriter(GanRewriter):
+    """Edit window = the bare conv of a ProgGAN block (reference
+    ganrewrite.py:78-81)."""
+
+    def maplayers(self, layernum):
+        name = f"layer{layernum}.conv"
+        return name, name
+
+    def _fast_parts(self, goal_in):
+        """The block's conv at its padding, nothing after it, scale 1 and
+        no demodulation."""
+        padding = self.model._conv_specs[self.firstlayer[:-len(".conv")]][3]
+
+        def conv_fn(x, w, groups=1):
+            return conv2d_grouped(x, w, padding, groups)
+
+        def tail_fn(params, bag):
+            return bag  # the window is the bare conv
+        return conv_fn, tail_fn, 1.0, False
+
+
 class SeqStyleGanRewriter(GanRewriter):
     """Edit window = dconv .. activate of one StyleGAN2 layer
     (reference ganrewrite.py:662-665)."""
@@ -585,18 +607,16 @@ class SeqStyleGanRewriter(GanRewriter):
 
     def _fast_parts(self, goal_in):
         """The window's bare conv (``F.conv_transpose2d`` at an upsampling
-        layer, ``F.conv2d`` otherwise) and the stages after it; demod on."""
+        layer, ``F.conv2d`` otherwise; grouped with ``groups``) and the
+        stages after it; demod on."""
         spec = self.model._param_specs.get(self.firstlayer)
         if spec is None or spec[0] != "dconv":
             return None      # the window starts before the linear conv
         _, in_c, _, k, upsample = spec
         scale = 1.0 / math.sqrt(in_c * k * k)
 
-        def conv_fn(x, w):
-            if upsample:
-                # == the flipped kernel over the 2-dilated input
-                return F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
-            return F.conv2d(x, w, padding=k // 2)
+        def conv_fn(x, w, groups=1):
+            return modconv_linear(x, w, upsample, k, groups)
 
         if self.firstlayer == self.lastlayer:
             def tail_fn(params, bag):

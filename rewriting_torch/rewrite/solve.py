@@ -13,6 +13,24 @@ Every solve returns ``(weight, per-step losses)``, or with
 synchronised start to a synchronised end of the loop; ``update_callback``
 is called with ``(step, loss)`` for every step once the loop has ended,
 so the loop never waits on the device for it.
+
+The batched forms of the two Λ·D solves (``linear_insert_solve_batched``,
+``fast_linear_insert_solve_batched``) solve E edits of one weight in one
+loop, where the JAX package vmaps the single solve: Λ has a leading edit
+axis, the E goals are folded into the batch edit-major (E·B rows,
+``ops/grouped.py``), each edit's conv is one group of a grouped
+convolution, and the step descends the sum of the E mean-abs losses, so
+each edit follows its own solve's Adam trajectory.  They return the E
+weights stacked and the per-step losses as (niter, E).
+
+Both take ``out0``, each edit's window output at Λ = 0 as its single
+solve computes it (batch B, folded as the goals are).  A convolution over
+E·B rows may round otherwise than over B, and where the goal equals the
+unedited output a single solve's residual is exactly 0, so L1's
+subgradient there is 0; rounding noise would give it a sign, which Adam
+turns into whole steps.  So each step's output is shifted by ``out0``
+minus the batch's own output at Λ = 0, a constant of the size of
+rounding, which makes the two agree bit for bit at Λ = 0.
 """
 
 from __future__ import annotations
@@ -25,6 +43,7 @@ import torch
 
 from ..core import DataBag
 from ..ops import precision
+from ..ops.grouped import folded, side_by_side
 
 
 def projected_conv(weight: torch.Tensor, direction: torch.Tensor
@@ -105,15 +124,17 @@ def _adam_loop(param: torch.Tensor, loss_fn: Callable, niter: int,
                lr: float, after_backward=None, after_step=None):
     """`niter` Adam steps on `param` (which requires grad) of
     ``loss_fn()``; ``after_backward()`` may rewrite the gradient and
-    ``after_step(it)`` the parameter.  Returns the per-step losses (device
-    scalars)."""
+    ``after_step(it)`` the parameter.  A batch of solves returns one loss
+    per edit, and the step descends their sum: each edit's Λ gets its own
+    loss's gradient, as in its own solve.  Returns the per-step losses
+    (device scalars, or (E,) vectors)."""
     opt = torch.optim.Adam([param], lr=lr)
     losses = []
     with precision.schedule_suspended():
         for it in range(niter):
             opt.zero_grad(set_to_none=True)
             loss = loss_fn()
-            loss.backward()
+            (loss if loss.dim() == 0 else loss.sum()).backward()
             if after_backward is not None:
                 after_backward()
             opt.step()
@@ -236,3 +257,112 @@ def fast_linear_insert_solve(conv_fn: Callable, tail_fn: Callable,
         w = w0_4d + _lift(lam, direction)
     return _finish(w[None] if w0.dim() == 5 else w, losses, timer,
                    update_callback)
+
+
+def _lift_batched(lam: torch.Tensor, directions: torch.Tensor
+                  ) -> torch.Tensor:
+    """Λ (E, O, rank, kh, kw) and D (E, rank, I) -> the E weight changes
+    (E, O, I, kh, kw)."""
+    return torch.einsum("eodyx,edi->eoiyx", lam, directions)
+
+
+def _per_edit_l1(goal_out: torch.Tensor, out: torch.Tensor, edits: int
+                 ) -> torch.Tensor:
+    """(E,) mean |goal_out - out| over each edit's rows of two maps folded
+    edit-major."""
+    return torch.abs(goal_out - out).reshape(edits, -1).mean(1)
+
+
+def _stacked(w: torch.Tensor, weight0: torch.Tensor) -> torch.Tensor:
+    """(E, O, I, kh, kw) -> E weights in weight0's shape, stacked."""
+    return w[:, None] if weight0.dim() == 5 else w
+
+
+def _anchored(window: Callable, lam: torch.Tensor, out0: torch.Tensor):
+    """``window`` shifted so that it gives ``out0`` at Λ = 0 (the module
+    docstring)."""
+    with torch.no_grad():
+        shift = out0 - window(torch.zeros_like(lam))
+    return lambda lam_: window(lam_) + shift
+
+
+def linear_insert_solve_batched(window_fn: Callable, weight0: torch.Tensor,
+                                goal_in, goal_out: torch.Tensor, directions,
+                                out0: torch.Tensor, niter: int = 2001,
+                                lr: float = 0.05,
+                                return_timing: bool = False):
+    """E ``linear_insert_solve``s of one weight in one loop: Adam on Λ (E,
+    O, rank, kh, kw), zero at the start, with edit e's weight ``weight0 +
+    Λ_e·D_e``.  ``window_fn(ws, goal_in)`` runs the window with the (E, O,
+    I, kh, kw) stack of weights over `goal_in` folded edit-major (E·B
+    rows); `goal_out` is folded the same way, `directions` is (E, rank,
+    I)."""
+    directions = torch.as_tensor(directions, dtype=weight0.dtype,
+                                 device=weight0.device)
+    edits, rank = directions.shape[:2]
+    timer = _Timer(weight0.device, return_timing)
+    w4 = weight0.detach()
+    w4 = w4[0] if w4.dim() == 5 else w4
+    o, _, kh, kw = w4.shape
+    lam = torch.zeros((edits, o, rank, kh, kw), dtype=w4.dtype,
+                      device=w4.device, requires_grad=True)
+    window = _anchored(lambda lam_: window_fn(
+        w4 + _lift_batched(lam_, directions), goal_in), lam, out0)
+    losses = _adam_loop(
+        lam, lambda: _per_edit_l1(goal_out, window(lam), edits), niter, lr)
+    with torch.no_grad():
+        w = w4 + _lift_batched(lam, directions)
+    return _finish(_stacked(w, weight0), losses, timer, None)
+
+
+def fast_linear_insert_solve_batched(conv_fn: Callable, tail_fn: Callable,
+                                     goal_in_bag, params,
+                                     goal_out: torch.Tensor,
+                                     w0: torch.Tensor, directions,
+                                     scale: float, out0: torch.Tensor,
+                                     niter: int = 2001, lr: float = 0.05,
+                                     use_demod: bool = False,
+                                     return_timing: bool = False):
+    """E ``fast_linear_insert_solve``s of one weight in one loop.  The E
+    goals are folded edit-major in ``goal_in_bag`` and `goal_out` (E·B
+    rows), `directions` is (E, rank, I).  Each step runs the E rank-r
+    convs as one grouped conv (``conv_fn(x, kernel, groups)``, x (B, E·r,
+    H, W) and the kernel (E·O, r, kh, kw)), each edit's demodulation from
+    its own ``style²`` and weight, and ``tail_fn`` once over all E·B
+    rows."""
+    directions = torch.as_tensor(directions, dtype=w0.dtype,
+                                 device=w0.device)
+    edits, rank, in_c = directions.shape
+    timer = _Timer(w0.device, return_timing)
+    w0 = w0.detach()
+    w0_4d = w0[0] if w0.dim() == 5 else w0
+    o, _, kh, kw = w0_4d.shape
+    x = goal_in_bag["fmap"]
+    b, h, w = x.shape[0] // edits, x.shape[2], x.shape[3]
+    with torch.no_grad():
+        x_d = torch.einsum("edi,ebihw->ebdhw", directions,
+                           x.reshape(edits, b, in_c, h, w))
+        x_d = side_by_side(x_d.reshape(edits * b, rank, h, w), edits)
+        base = conv_fn(x, w0_4d * scale)        # constant across the steps
+        style2 = (torch.square(goal_in_bag["style"]).reshape(edits, b, in_c)
+                  if use_demod else None)       # (E, B, I)
+
+    def window(lam):
+        out = base + folded(conv_fn(x_d, (lam * scale).reshape(
+            edits * o, rank, kh, kw), edits), edits)
+        if use_demod:
+            ws = w0_4d + _lift_batched(lam, directions)
+            w_sq = torch.sum(torch.square(ws * scale), dim=(-2, -1))
+            demod = torch.rsqrt(torch.bmm(style2, w_sq.transpose(1, 2))
+                                + 1e-8)         # (E, B, O)
+            out = out * demod.reshape(edits * b, o)[:, :, None, None]
+        return tail_fn(params, DataBag(goal_in_bag, fmap=out))["fmap"]
+
+    lam = torch.zeros((edits, o, rank, kh, kw), dtype=w0.dtype,
+                      device=w0.device, requires_grad=True)
+    window = _anchored(window, lam, out0)
+    losses = _adam_loop(
+        lam, lambda: _per_edit_l1(goal_out, window(lam), edits), niter, lr)
+    with torch.no_grad():
+        ws = w0_4d + _lift_batched(lam, directions)
+    return _finish(_stacked(ws, w0), losses, timer, None)

@@ -1,0 +1,130 @@
+"""How far two runs of the Λ·D edit solve land apart on one CUDA device.
+
+Church-256 at its published widths (random weights, seed 0), the layer-7
+rewriter (an upsampling layer: the window runs the FIR blur) and the
+goals of four edit requests.  For each of cuDNN's default and its
+deterministic algorithms, it runs the fast Λ·D solve of the first request
+twice alone, and the four as one batch twice
+(``solve.fast_linear_insert_solve_batched``), for 1 step and for
+``--steps`` steps, and prints the weights' max abs difference and the
+losses' between the runs: alone vs alone, batch vs batch, batch vs alone.
+Then the first step's gradient of the single solve, computed twice: how
+far apart, how large, and the share of its elements near 0, whose sign
+Adam's first step turns into a whole step of lr.
+
+    python3 scripts/probe_solve_determinism.py [--steps 2001]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from rewriting_torch.core import DataBag  # noqa: E402
+from rewriting_torch.models.stylegan2 import SeqStyleGAN2  # noqa: E402
+from rewriting_torch.ops import _build  # noqa: E402
+from rewriting_torch.rewrite import SeqStyleGanRewriter, solve  # noqa: E402
+from rewriting_torch.rewrite.multi import build_goals, fold_bags  # noqa: E402
+from rewriting_torch.utils.zdataset import z_dataset_for_model  # noqa: E402
+
+REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2001)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("probe_solve_determinism: no CUDA device")
+    _build.build_all(["blur2d"])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    model = SeqStyleGAN2(256, style_dim=512, n_mlp=8, device="cuda")
+    rw = SeqStyleGanRewriter(model, model.init_params(seed=0),
+                             z_dataset_for_model(model, 1000), layernum=7)
+    requests = []
+    for name in REQUESTS:
+        with open(os.path.join(ROOT, "notebooks", "masks", "stylegan",
+                               "church", f"{name}.json")) as f:
+            requests.append(json.load(f))
+    goals = build_goals(rw, requests)
+    conv_fn, tail_fn, scale, use_demod = rw.fast_parts_cached()
+    bag = fold_bags([g[0] for g in goals])
+    goal_out = torch.cat([g[1] for g in goals])
+    directions = torch.stack([g[2] for g in goals])
+    out0 = torch.cat([rw._target(rw.params, g[0])["fmap"] for g in goals])
+    w0 = rw.target_weight()
+
+    def alone(n):
+        g = goals[0]
+        return solve.fast_linear_insert_solve(
+            conv_fn, tail_fn, g[0], rw.params, g[1], w0, g[2], scale,
+            niter=n, use_demod=use_demod)
+
+    def batch(n):
+        return solve.fast_linear_insert_solve_batched(
+            conv_fn, tail_fn, bag, rw.params, goal_out, w0, directions,
+            scale, niter=n, use_demod=use_demod, out0=out0)
+
+    def apart(a, b):
+        return float((a - b).abs().max())
+
+    rows = []
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        for n in (1, args.steps):
+            s1, s2 = alone(n), alone(n)
+            b1, b2 = batch(n), batch(n)
+            row = {"cudnn_deterministic": deterministic, "steps": n,
+                   "alone_vs_alone_w": apart(s1[0], s2[0]),
+                   "alone_vs_alone_loss": float(np.abs(s1[1] - s2[1]).max()),
+                   "batch_vs_batch_w": apart(b1[0], b2[0]),
+                   "batch_vs_alone_w": apart(b1[0][0], s1[0]),
+                   "batch_vs_alone_loss": float(
+                       np.abs(b1[1][:, 0] - s1[1]).max()),
+                   "edit_max_abs": apart(s1[0], w0)}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    torch.backends.cudnn.deterministic = False
+
+    def first_gradient():
+        gin, gout, d = goals[0]
+        lam = torch.zeros((w0.shape[1], d.shape[0], 3, 3), device="cuda",
+                          requires_grad=True)
+        w4 = w0[0]
+        with torch.no_grad():
+            x = gin["fmap"]
+            x_d = torch.einsum("di,bihw->bdhw", d, x)
+            base = conv_fn(x, w4 * scale)
+        out = base + conv_fn(x_d, lam * scale)
+        w = w4 + torch.einsum("odyx,di->oiyx", lam, d)
+        w_sq = torch.sum(torch.square(w * scale), dim=(-2, -1))
+        out = out * torch.rsqrt(torch.square(gin["style"]) @ w_sq.t()
+                                + 1e-8)[:, :, None, None]
+        out = tail_fn(rw.params, DataBag(gin, fmap=out))["fmap"]
+        torch.mean(torch.abs(gout - out)).backward()
+        return lam.grad
+    g1, g2 = first_gradient(), first_gradient()
+    print(json.dumps({
+        "first_gradient_twice_max_abs": apart(g1, g2),
+        "first_gradient_max_abs": float(g1.abs().max()),
+        "share_below_1e-9": float((g1.abs() < 1e-9).float().mean()),
+        "sign_flips": float((torch.sign(g1) != torch.sign(g2)).float()
+                            .mean())}))
+
+
+if __name__ == "__main__":
+    main()

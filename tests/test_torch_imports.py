@@ -12,8 +12,10 @@ import pytest
 import torch
 
 import chip_smoke
+from rewriting_torch.models import ProgressiveGenerator, zoo
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2
-from rewriting_torch.rewrite import SeqStyleGanRewriter
+from rewriting_torch.rewrite import ProgressiveGanRewriter, SeqStyleGanRewriter
+from rewriting_torch.utils import paramio
 from rewriting_torch.utils.zdataset import z_dataset_for_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -36,10 +38,14 @@ print(len(names), loaded)
 print(" ".join(names))
 """
 
-# the modules of the sampling slice, which the walk must reach
+# the modules of the sampling slice and of slice 7, which the walk must
+# reach
 SLICE2 = ("ops.upconv_blur", "ops.upsample2x", "metrics.sample",
           "metrics.sample_edited", "metrics.load_mask", "utils.imgsave",
           "utils.workerpool", "utils.pidfile", "utils.pbar")
+SLICE7 = ("models.proggan", "rewrite.multi", "core.instrument",
+          "metrics.watermark", "ops.grouped", "utils.paramio",
+          "utils.easydict", "utils.profiling", "utils.show")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -49,7 +55,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2:
+    for name in SLICE2 + SLICE7:
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -84,7 +90,7 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("device", [None, "cuda"], ids=["default", "cuda"])
-def test_entry_points_raise_without_cuda(no_cuda, device):
+def test_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
     kw = {} if device is None else {"device": device}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SeqStyleGAN2(8, style_dim=16, n_mlp=1, **kw)
@@ -94,6 +100,23 @@ def test_entry_points_raise_without_cuda(no_cuda, device):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SeqStyleGanRewriter(model, params, z_dataset_for_model(model, 4),
                             layernum=2, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProgressiveGenerator(sizes=[8, 8, 4], **kw)
+    pg = ProgressiveGenerator(sizes=[8, 8, 4], device="cpu")
+    pg_params = pg.init_params(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProgressiveGanRewriter(pg, pg_params, z_dataset_for_model(pg, 4),
+                               layernum=2, **kw)
+    path = tmp_path / "proggan_churchoutdoor.pth"
+    torch.save({f"{k}.{'weight' if 'conv' in k else 'b'}": v
+                for k, sub in pg_params.items() for v in sub.values()}, path)
+    assert zoo.load_proggan("church", path=str(path),
+                            device="cpu")[0].sizes == [8, 8, 4]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.load_proggan("church", path=str(path), **kw)
+    paramio.save_params(str(tmp_path / "p.npz"), pg_params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paramio.load_params(str(tmp_path / "p.npz"), **kw)
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):

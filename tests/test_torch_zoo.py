@@ -12,17 +12,21 @@ JAX package's.
   rename.
 - The zoo loads a ``.pt`` from ``path=`` or ``$REWRITING_TPU_WEIGHTS`` and
   raises ``FileNotFoundError`` naming the file and its URL when it is
-  missing, without touching the network.
+  missing, without touching the network.  A training checkpoint with an
+  ``argparse.Namespace`` under ``args`` loads through ``weights_only``,
+  bit for bit as the JAX zoo loads it.
 - ``sample.main()`` and ``sample_edited.main()`` run on the CPU with the
   loader patched to a tiny model; their PNGs are within 1 LSB of the JAX
   package's ``sample_clean`` on the same weights (the limit of
   tests/test_torch_sample.py).
 """
 
+import argparse
 import functools
 import io
 import json
 import os
+import pickle
 import socket
 import sys
 import urllib.request
@@ -35,6 +39,7 @@ import torch
 
 import chip_smoke
 from rewriting_tpu.metrics import sample as jax_sample
+from rewriting_tpu.models import zoo as jax_zoo
 from rewriting_tpu.models.stylegan2 import SeqStyleGAN2 as JaxSeqStyleGAN2
 from rewriting_tpu.models.stylegan2 import \
     _seq_names_from_rosinality as jax_rename
@@ -232,6 +237,35 @@ def test_zoo_loads_a_rosinality_file(church8, monkeypatch, no_network, how):
     assert (model.size, model.style_dim, model.n_mlp, model.truncation) == \
         (8, 512, 8, 0.5)
     _assert_params_equal(got, params)
+
+
+@pytest.mark.parametrize("names", ["seq", "rosinality"])
+def test_zoo_reads_a_training_checkpoint_with_args(church8, tmp_path,
+                                                  no_network, names):
+    """A checkpoint that keeps its ``argparse.Namespace`` under ``args``
+    beside ``g_ema`` (as rosinality's training script saves it) loads
+    through the port's ``weights_only`` unpickler by ``path=``: with
+    seq-named weights equal bit for bit to the JAX zoo's result; with
+    rosinality's names (which the JAX converter refuses, ROADMAP.md queue
+    3) equal to the weights written."""
+    root, params = church8
+    ckpt = torch.load(root / "stylegan2_church.pt", weights_only=True)
+    if names == "seq":
+        ckpt = {"g_ema": jax_rename(ckpt), "latent_avg": ckpt["latent_avg"]}
+    ckpt["args"] = argparse.Namespace(size=8, latent=512, n_mlp=8, lr=0.002,
+                                      ckpt=None, wandb=False)
+    path = str(tmp_path / "stylegan2_church.pt")
+    torch.save(ckpt, path)
+    with pytest.raises(pickle.UnpicklingError):
+        torch.load(path, weights_only=True)
+    model, got = zoo.load_seq_stylegan("church", path=path, truncation=0.5,
+                                       size=8, device="cpu")
+    _assert_params_equal(got, params)
+    if names == "seq":
+        jm, jp = jax_zoo.load_seq_stylegan("church", path=path,
+                                           truncation=0.5, size=8)
+        _assert_params_equal(got, params_from_jax(
+            model, jax.tree_util.tree_map(np.asarray, jp)))
 
 
 def test_zoo_missing_file_names_the_file_and_its_url(tmp_path, monkeypatch,
