@@ -5,18 +5,18 @@ The port's counterpart of the JAX package's ``metrics/watermark.py``
 the reference's metrics/make_watermark_images.py: the key statistics of
 a StyleGAN2 layer are taken from the truncation-1.0 model and cached,
 then the watermark rule is erased from the truncation-0.5 sampling model
-with ``apply_erase`` (``ours``, repeated ``nreps`` times) or left as it
-is (``none``), and the z dataset's images are written.  The
-``gandissect`` method (zero the weight along GANdissect's key direction)
-needs the per-unit quantile sketch, which is not ported yet (ROADMAP.md
-queue 1, item 5): it raises ``NotImplementedError``.
+with ``apply_erase`` (``ours``, repeated ``nreps`` times), by GANdissect's
+baseline (``gandissect``: the `drank` units of the request's key
+selections that score highest against their quantile sketch, zeroed in
+the weight with ``zero``) or left as it is (``none``), and the z
+dataset's images are written.
 
 Command line (JAX package :94-130; reference :12-96)::
 
     python3 -m rewriting_torch.metrics.watermark [--model church]
         [--request multikey_markandbottom] [--requestdir notebooks/masks]
         [--layer 6] [--niters 2001] [--nreps 2] [--sample_size 1000]
-        [--erasemethod ours|none] [--outdir results/watermark]
+        [--erasemethod ours|gandissect|none] [--outdir results/watermark]
 
 loads the model's checkpoint twice through ``models/zoo.py`` (truncation
 1.0 for the statistics, 0.5 for the erase and the images), on the card,
@@ -39,7 +39,9 @@ from ..utils.imgsave import SaveImagePool
 from ..utils.pidfile import mark_job_done, reserve_dir
 from ..utils.zdataset import z_dataset_for_model
 
-ERASE_METHODS = ("ours", "none")
+ERASE_METHODS = ("ours", "gandissect", "none")
+# the context directions each method's rewriters are built with
+_KEY_METHODS = {"ours": "zca", "gandissect": "gandissect", "none": "zca"}
 
 
 def save_zds_images(dirname: str, model, params, zds, batch_size: int = 10,
@@ -78,13 +80,10 @@ def erase_watermark(model, params, params_for_covariance, request: dict,
     where the rewriter of `model` and `params` finds them; the erase and
     the images use `model` and `params`.  ``update_callback(rep, step,
     loss)`` sees every step of each repetition's solve."""
-    if erasemethod == "gandissect":
-        raise NotImplementedError(
-            "erasemethod 'gandissect' needs the per-unit quantile sketch, "
-            "which is not ported yet (ROADMAP.md queue 1, item 5)")
     if erasemethod not in ERASE_METHODS:
         raise ValueError(f"erasemethod {erasemethod!r}: one of "
-                         f"{ERASE_METHODS} ('gandissect' is not ported)")
+                         f"{ERASE_METHODS}")
+    key_method = _KEY_METHODS[erasemethod]
     zds = z_dataset_for_model(model, size=sample_size)
     os.makedirs(outdir, exist_ok=True)
     if params_for_covariance is not None:
@@ -92,10 +91,10 @@ def erase_watermark(model, params, params_for_covariance, request: dict,
         SeqStyleGanRewriter(
             covariance_model or model, params_for_covariance, zds, layer,
             cachedir=outdir, low_rank_insert=True, low_rank_gradient=True,
-            device=model.device)
+            key_method=key_method, device=model.device)
     gw = SeqStyleGanRewriter(
         model, params, zds, layer, cachedir=outdir, low_rank_insert=True,
-        low_rank_gradient=True, device=model.device)
+        low_rank_gradient=True, key_method=key_method, device=model.device)
     if erasemethod == "ours":
         for rep in range(nreps):
             pbar.print("erasing objects from model (rep %d)" % rep)
@@ -104,6 +103,8 @@ def erase_watermark(model, params, params_for_covariance, request: dict,
             if update_callback is not None:
                 for step, loss in enumerate(losses):
                     update_callback(rep, step, loss)
+    elif erasemethod == "gandissect":
+        gw.zero(gw.multi_key_from_selection(request["key"], rank=drank))
     if save_images:
         savedir = os.path.join(outdir, "images")
         os.makedirs(savedir, exist_ok=True)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import DataBag, Stage, StagePipeline
+from ..core import DataBag, Stage, StagePipeline, leaves, tree_map
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
 from ..ops.grouped import folded, side_by_side
 from ..ops.upfirdn2d import apply_blur, blur_taps
@@ -532,9 +532,7 @@ class SeqStyleGAN2:
 
 def params_to(params, device) -> Dict[str, dict]:
     """The params tree with every tensor moved to `device`."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    return params.to(device)
+    return tree_map(lambda t: t.to(device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -659,13 +657,6 @@ def params_from_state_dict(model: SeqStyleGAN2, sd: dict,
                              f"{tuple(want.shape)}")
         holder[path[-1]] = arr
 
-    def leaves(tree, prefix=""):
-        for key, val in tree.items():
-            name = f"{prefix}.{key}" if prefix else key
-            if isinstance(val, dict):
-                yield from leaves(val, name)
-            else:
-                yield name, val
     missing = [name for (name, got), (_, orig) in zip(leaves(params),
                                                       leaves(template))
                if got is orig and "latent_avg" not in name

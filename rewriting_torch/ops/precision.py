@@ -10,12 +10,25 @@ Per-stage mixed-precision schedules are not ported yet.
 :func:`schedule_suspended` marks the code that must always run at the
 global tier (statistics and the edit solve), as in the JAX package, so a
 sampling schedule, once added, cannot leak into the edit math.
+
+:func:`deterministic` pins cuDNN to its deterministic algorithms for the
+edits: the goals, the solves and their precomputed terms
+(:func:`run_deterministic` marks such a function).  cuDNN's default
+algorithms sum in an order that varies run to run, the weight gradients'
+and on an H100 the forward convolutions' too (``scripts/
+probe_solve_determinism.py --where``: the window's forward 4.8e-7 apart,
+the fast solve's base convolution 3e-5), and an L1 loss under Adam turns
+each flipped sign of a near-0 gradient into a whole step of lr, so
+without it one solve run twice lands 1e-2 apart in the weights.  Sampling
+and the statistics keep cuDNN's default algorithms: a rounding there does
+not grow.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
 import torch
 
@@ -39,3 +52,27 @@ def schedule_suspended():
         yield
     finally:
         _SCHEDULE_SUSPENDED.reset(token)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms (and no autotuning) for the code
+    run within; the previous settings are put back after.  TF32 stays as
+    the parity tier set it."""
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def run_deterministic(fn):
+    """`fn` run inside :func:`deterministic` (a decorator)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with deterministic():
+            return fn(*args, **kwargs)
+    return run

@@ -59,13 +59,16 @@ def fold_bags(bags: Sequence[DataBag]) -> DataBag:
                     for key, value in bags[0].items()})
 
 
+@precision.run_deterministic
 def batch_apply_edits(gw, requests: Sequence[dict], rank: int = 1,
                       niter: int = 2001, lr: float = 0.05,
                       return_timing: bool = False):
     """Solve every request at once: (one edited target weight per request,
     the (E,) final losses), and with ``return_timing`` the solve's
     milliseconds.  ``gw.params`` is left as it is: the caller commits an
-    edit with ``gw.set_target_weight`` or keeps all of them."""
+    edit with ``gw.set_target_weight`` or keeps all of them.  The goals
+    and the solve run with cuDNN's deterministic algorithms: the batch
+    repeats bit for bit."""
     goals = build_goals(gw, requests, rank=rank)
     bag = fold_bags([g[0] for g in goals])
     goal_out = torch.cat([g[1] for g in goals])

@@ -3,16 +3,16 @@ memory and rewrite it with a rank-constrained weight edit.
 
 Counterpart of the JAX package's ``rewrite/rewriter.py``: ``GanRewriter``
 (:42-694), ``ProgressiveGanRewriter`` (:697-716), ``SeqStyleGanRewriter``
-(:718-799) and its Tiny and Pre variants (:801-857).  Ported: the
+(:718-799) and its Tiny and Pre variants (:801-857), all of it: the
 three-way split, the shape probe, the key second moment and its ZCA; the
-query key and the ``zca``, ``svd`` and
-``mean`` context directions; the pasted goal (tight or whole-map, with or
-without the object's alpha) and the erase goal with its normdissect
-units; the three solves (projected Adam, with or without its gradient
-projected; the direct ``Λ·D`` solve; its fast decomposition) and ``zero``;
-the renders; revert.  Waiting: the ``gandissect`` directions,
-``ranking_for_key`` and the quantile hooks (they need the quantile
-sketch), and ``apply_overfit``/``all_weights_insert``.
+per-unit quantile sketches of the keys and of the covariance-adjusted
+keys; the query key, the Search ranking (``ranking_for_key``) and the
+``zca``, ``svd``, ``mean`` and ``gandissect`` context directions; the
+pasted goal (tight or whole-map, with or without the object's alpha) and
+the erase goal with its normdissect units; the three solves (projected
+Adam, with or without its gradient projected; the direct ``Λ·D`` solve;
+its fast decomposition) and ``zero``; the all-weights "overfit" baseline
+(``all_weights_insert``, ``apply_overfit``); the renders; revert.
 
 The generator splits into context / target / rendering sub-pipelines by
 stage name; all three read the one params dict, so an edit is a new weight
@@ -28,7 +28,12 @@ The renders are ``uint8 (H, W, 3)`` numpy arrays where the JAX package
 returns PIL images.
 
 The solves return their per-step losses (the JAX package's return
-nothing), and with ``return_timing`` ``(losses, elapsed ms)``.
+nothing), and with ``return_timing`` ``(losses, elapsed ms)``.  The edits
+(``apply_edit``, ``apply_erase``, ``apply_overfit``: goals and solves) run
+with cuDNN's deterministic algorithms, so one repeats bit for bit on the
+card; the statistics and renders keep its default ones.  The
+quantile sketches' queries and ``ranking_for_key``'s image numbers are
+host numpy, as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -41,17 +46,18 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import DataBag
+from ..core import DataBag, leaves, tree_map
 from ..models.proggan import conv2d_grouped
 from ..models.stylegan2 import modconv_linear, params_to
 from ..ops import precision
 from ..stats import running, tally
+from ..stats.quantile import RunningQuantile
 from ..utils import imgviz, renormalize
 from ..utils.device import resolve_device
 from . import geometry, solve
 
 
-KEY_METHODS = ("zca", "svd", "mean")
+KEY_METHODS = ("zca", "gandissect", "svd", "mean")
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -59,11 +65,6 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_key_method(key_method: str) -> None:
-    if key_method == "gandissect":
-        raise NotImplementedError(
-            "key_method 'gandissect' needs the per-unit quantile sketch "
-            "(tally_quantile), which is not ported yet (ROADMAP.md queue "
-            "1, item 5)")
     if key_method not in KEY_METHODS:
         raise ValueError(f"key_method {key_method!r}: one of {KEY_METHODS}")
 
@@ -97,6 +98,8 @@ class GanRewriter:
         self.key_method = key_method
         self.stats_batch_size = stats_batch_size
         self.unit_rs = None
+        self.unit_rq: Optional[RunningQuantile] = None
+        self.cad_rq: Optional[RunningQuantile] = None
 
         self.firstlayer, self.lastlayer = self.maplayers(layernum)
         # own copy of the params dict: edits never touch the caller's tree
@@ -194,7 +197,8 @@ class GanRewriter:
         self.params[stage] = {**self.params[stage], "weight": w}
 
     def revert(self) -> None:
-        """Restore the pristine weights."""
+        """Restore the pristine weights, every leaf (the overfit baseline
+        rewrites them all)."""
         self.params = dict(self.original_params)
 
     def rf(self, fn: str) -> Optional[str]:
@@ -252,6 +256,53 @@ class GanRewriter:
                     cachefile=self.rf("unit_rs.npz"),
                     device=self.device).mean()
         return self.unit_rs
+
+    def quantiles_for_units(self) -> RunningQuantile:
+        """Quantile sketch of each unit's context activation over the z
+        dataset, npz-cached as ``unit_rq.npz``."""
+        if self.unit_rq is None:
+            with precision.schedule_suspended():
+                self.unit_rq = tally.tally_quantile(
+                    self._key_rows, self.zds,
+                    batch_size=self.stats_batch_size,
+                    cachefile=self.rf("unit_rq.npz"), device=self.device)
+        return self.unit_rq
+
+    def quantiles_for_covariance_adjusted_directions(self) -> RunningQuantile:
+        """Quantile sketch of the context keys adjusted through the
+        ``covariance_adjusted_key`` hook (so a subclass's override
+        applies), npz-cached as ``unit_cad.npz``."""
+        if self.cad_rq is None:
+            def rows(zbatch):
+                bag = self._context(self.params, self.model.make_bag(zbatch))
+                flat = self.context_acts(bag).reshape(-1, self.k_shape[-1])
+                return torch.as_tensor(self.covariance_adjusted_key(
+                    flat.cpu().numpy(), bag), device=self.device)
+
+            with precision.schedule_suspended():
+                self.cad_rq = tally.tally_quantile(
+                    rows, self.zds, batch_size=self.stats_batch_size,
+                    cachefile=self.rf("unit_cad.npz"), device=self.device)
+        return self.cad_rq
+
+    def _key_response(self, key: torch.Tensor, zbatch):
+        """The response of the context activations to a (C,) key on a z
+        batch: (each image's maximum (B, 1), every pixel's (B·H·W, 1))."""
+        acts = self._context(self.params, self.model.make_bag(zbatch))["fmap"]
+        heat = torch.einsum("bchw,c->bhw", acts, key)
+        return heat.reshape(heat.shape[0], -1).amax(dim=1)[:, None], \
+            heat.reshape(-1, 1)
+
+    def ranking_for_key(self, key, k: int = 12):
+        """The UI's Search: the `k` images of the z dataset whose response
+        to `key` peaks highest (numpy image numbers, best first), and the
+        quantile sketch of the response over every pixel."""
+        key = torch.as_tensor(key, dtype=torch.float32, device=self.device)
+        with precision.schedule_suspended():
+            topk, rq = tally.tally_topk_and_quantile(
+                lambda zbatch: self._key_response(key, zbatch), self.zds,
+                k=k, batch_size=self.stats_batch_size, device=self.device)
+        return topk.result()[1][0].cpu().numpy(), rq
 
     # -- selections (masks -> activations) ---------------------------------------
     def _mask_at(self, mask_url, shape) -> np.ndarray:
@@ -386,7 +437,10 @@ class GanRewriter:
         ganrewrite.py:333-425).  'zca': whiten the masked keys, take their
         top right-singular vectors, map them back to row space,
         orthonormalize and align their signs with the whitened mean.
-        'svd'/'mean': each pair's masked keys through the
+        'gandissect': each unit's quantile rank of its activations over
+        the selections (``quantiles_for_units``), scored by the
+        mask-weighted mean of -log(1 - rank), and the top `rank` units
+        one-hot.  'svd'/'mean': each pair's masked keys through the
         ``covariance_adjusted_key`` hook, then their top left-singular
         vectors (the first signed along the mean) or their normalized
         mean (rank 1)."""
@@ -403,6 +457,15 @@ class GanRewriter:
             signs = np.sign((q * just_avg[:, None]).sum(0))
             signs[signs == 0] = 1.0
             return torch.as_tensor((q * signs[None, :]).T, device=self.device)
+        if key_method == "gandissect":
+            obs, w = self._gather_masked_obs(imgnum_mask_pairs, keep_all=True)
+            ranks = self.quantiles_for_units().normalize(obs.T).T
+            logscore = -np.log(np.maximum(1.0 - ranks, 1e-20))
+            mean_logscore = (logscore * w).sum(0) / w.sum()
+            top = np.argsort(-mean_logscore)[:rank]
+            result = np.zeros((rank, obs.shape[1]), np.float32)
+            result[np.arange(rank), top] = 1.0
+            return torch.as_tensor(result, device=self.device)
         adjusted = []
         for imgnum, mask in imgnum_mask_pairs:
             k_bag, k_acts = self._context_np(imgnum)
@@ -494,7 +557,56 @@ class GanRewriter:
             ortho + amount * solve.projected_conv(torch.ones_like(w),
                                                   context))
 
+    @precision.run_deterministic
+    def all_weights_insert(self, x_target, z, bounds=None,
+                           update_callback=None, niter: int = 20001,
+                           lr: float = 0.01, feature_loss_fn=None,
+                           feature_weight: float = 1e-2) -> np.ndarray:
+        """The "overfit" baseline (reference ganrewrite.py:300-331): Adam
+        on every leaf of the params through the whole pipeline, towards
+        the (1, H, W, 3) image `x_target` from latent `z`, by the L1
+        distance inside `bounds` (t, l, b, r; the whole image if None),
+        plus ``feature_weight`` times the mean squared distance of
+        ``feature_loss_fn`` of the two (NHWC) crops when given (the
+        reference's VGG16 features).  ``update_callback(step, loss)`` every
+        50 steps.  Runs with cuDNN's deterministic algorithms.  Commits the
+        new params; returns the per-step losses."""
+        x_target = torch.as_tensor(np.asarray(x_target), dtype=torch.float32,
+                                   device=self.device)
+        bag = self.model.make_bag(torch.as_tensor(z, device=self.device))
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                           self.params)
+        if bounds is None:
+            gt = x_target
+        else:
+            t, l, b, r = bounds
+            gt = x_target[:, t:b, l:r, :]
+
+        def loss_fn():
+            out = _nhwc(self.model.pipeline(params, bag)["output"])
+            pred = out if bounds is None else out[:, t:b, l:r, :]
+            loss = torch.mean(torch.abs(gt - pred))
+            if feature_loss_fn is not None:
+                loss = loss + feature_weight * torch.mean(torch.square(
+                    feature_loss_fn(gt) - feature_loss_fn(pred)))
+            return loss
+
+        opt = torch.optim.Adam([t for _, t in leaves(params)], lr=lr)
+        losses = []
+        with precision.schedule_suspended():
+            for it in range(niter):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn()
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+                if update_callback is not None and it % 50 == 0:
+                    update_callback(it, losses[-1])
+        self.params = tree_map(lambda t: t.detach(), params)
+        return torch.stack(losses).cpu().numpy()
+
     # -- edit-request entry points -------------------------------------------
+    @precision.run_deterministic
     def apply_edit(self, request, rank=1, niter=2001, piter=10, lr=0.05,
                    update_callback=None, single_key: int = -1,
                    return_timing=False):
@@ -515,6 +627,7 @@ class GanRewriter:
                            update_callback=update_callback, niter=niter,
                            piter=piter, lr=lr, return_timing=return_timing)
 
+    @precision.run_deterministic
     def apply_erase(self, request, rank=1, drank=30, niter=2001, piter=10,
                     lr=0.05, update_callback=None):
         """Erase the request's paste region: zero its top-`drank` context
@@ -528,6 +641,25 @@ class GanRewriter:
         return self.insert(goal_in, goal_out, mkey,
                            update_callback=update_callback, niter=niter,
                            piter=piter, lr=lr)
+
+    @precision.run_deterministic
+    def apply_overfit(self, request, niter: int = 20001, lr: float = 0.01,
+                      update_callback=None, feature_loss_fn=None
+                      ) -> np.ndarray:
+        """The overfit baseline on a UI request: the object's pixels
+        pasted at the paste mask, then ``all_weights_insert`` towards that
+        image inside the pasted box (reference ganrewrite.py:171-181);
+        returns the losses.  The target image's forwards run with cuDNN's
+        deterministic algorithms too, as ``apply_edit``'s goals do."""
+        o_imgnum, o_mask = request["object"]
+        p_imgnum, p_mask = request["paste"]
+        rgb_clip, _, obj_area, _ = self.rgb_from_selection(o_imgnum, o_mask)
+        host_z, changed_rgb, bounds = self.rgbpaste_from_selection(
+            p_imgnum, p_mask, rgb_clip, obj_area)
+        return self.all_weights_insert(changed_rgb, host_z, bounds=bounds,
+                                       update_callback=update_callback,
+                                       niter=niter, lr=lr,
+                                       feature_loss_fn=feature_loss_fn)
 
     # -- renders: uint8 (H, W, 3) arrays ---------------------------------------
     def render_object(self, target_bag, box=None) -> np.ndarray:

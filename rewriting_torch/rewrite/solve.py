@@ -8,7 +8,10 @@ low-rank decomposition ``fast_linear_insert_solve`` (:199-285).  The JAX
 package compiles each solve into one ``lax.scan``; here each is an eager
 loop with ``torch.optim.Adam``, the update rule that optax's Adam mirrors.
 
-Every solve returns ``(weight, per-step losses)``, or with
+Every solve runs with cuDNN's deterministic algorithms
+(``precision.deterministic``), its precomputed terms too, so it repeats
+bit for bit on the card.  Every solve returns ``(weight, per-step
+losses)``, or with
 ``return_timing`` ``(weight, losses, elapsed ms)``, the time from a
 synchronised start to a synchronised end of the loop; ``update_callback``
 is called with ``(step, loss)`` for every step once the loop has ended,
@@ -127,7 +130,10 @@ def _adam_loop(param: torch.Tensor, loss_fn: Callable, niter: int,
     ``after_step(it)`` the parameter.  A batch of solves returns one loss
     per edit, and the step descends their sum: each edit's Λ gets its own
     loss's gradient, as in its own solve.  Returns the per-step losses
-    (device scalars, or (E,) vectors)."""
+    (device scalars, or (E,) vectors).  The loop runs at the parity tier;
+    its callers, the solves, run it with cuDNN's deterministic algorithms
+    (``precision.run_deterministic``), so a solve repeats bit for bit on
+    the card."""
     opt = torch.optim.Adam([param], lr=lr)
     losses = []
     with precision.schedule_suspended():
@@ -144,6 +150,7 @@ def _adam_loop(param: torch.Tensor, loss_fn: Callable, niter: int,
     return losses
 
 
+@precision.run_deterministic
 def insert_solve(window_fn: Callable, weight0: torch.Tensor, goal_in,
                  goal_out: torch.Tensor, direction, niter: int = 2001,
                  piter: int = 10, lr: float = 0.05,
@@ -185,6 +192,7 @@ def _lift(lam: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...odyx,di->...oiyx", lam, direction)
 
 
+@precision.run_deterministic
 def linear_insert_solve(window_fn: Callable, weight0: torch.Tensor,
                         goal_in, goal_out: torch.Tensor, direction,
                         niter: int = 2001, lr: float = 0.05,
@@ -210,6 +218,7 @@ def linear_insert_solve(window_fn: Callable, weight0: torch.Tensor,
     return _finish(w, losses, timer, update_callback)
 
 
+@precision.run_deterministic
 def fast_linear_insert_solve(conv_fn: Callable, tail_fn: Callable,
                              goal_in_bag, params, goal_out: torch.Tensor,
                              w0: torch.Tensor, direction, scale: float,
@@ -286,6 +295,7 @@ def _anchored(window: Callable, lam: torch.Tensor, out0: torch.Tensor):
     return lambda lam_: window(lam_) + shift
 
 
+@precision.run_deterministic
 def linear_insert_solve_batched(window_fn: Callable, weight0: torch.Tensor,
                                 goal_in, goal_out: torch.Tensor, directions,
                                 out0: torch.Tensor, niter: int = 2001,
@@ -315,6 +325,7 @@ def linear_insert_solve_batched(window_fn: Callable, weight0: torch.Tensor,
     return _finish(_stacked(w, weight0), losses, timer, None)
 
 
+@precision.run_deterministic
 def fast_linear_insert_solve_batched(conv_fn: Callable, tail_fn: Callable,
                                      goal_in_bag, params,
                                      goal_out: torch.Tensor,

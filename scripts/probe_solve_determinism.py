@@ -10,9 +10,15 @@ twice alone, and the four as one batch twice
 losses' between the runs: alone vs alone, batch vs batch, batch vs alone.
 Then the first step's gradient of the single solve, computed twice: how
 far apart, how large, and the share of its elements near 0, whose sign
-Adam's first step turns into a whole step of lr.
+Adam's first step turns into a whole step of lr.  With ``--where``,
+instead: which computation of an edit differs run to run with cuDNN's
+default algorithms: the goals built twice (forward passes only), each
+solve's precomputed terms (the fast solve's base convolution, the
+batch's Λ = 0 anchor), the solves and ``batch_apply_edits`` run twice as
+the port runs them, and ``batch_apply_edits`` run twice inside
+``precision.deterministic()``.
 
-    python3 scripts/probe_solve_determinism.py [--steps 2001]
+    python3 scripts/probe_solve_determinism.py [--steps 2001] [--where]
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2001)
+    ap.add_argument("--where", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("probe_solve_determinism: no CUDA device")
@@ -82,6 +89,9 @@ def main() -> None:
     def apart(a, b):
         return float((a - b).abs().max())
 
+    if args.where:
+        where(rw, requests, goals, alone, batch, apart, args.steps)
+        return
     rows = []
     for deterministic in (False, True):
         torch.backends.cudnn.deterministic = deterministic
@@ -124,6 +134,43 @@ def main() -> None:
         "share_below_1e-9": float((g1.abs() < 1e-9).float().mean()),
         "sign_flips": float((torch.sign(g1) != torch.sign(g2)).float()
                             .mean())}))
+
+
+def where(rw, requests, goals, alone, batch, apart, steps: int) -> None:
+    """Each part of an edit computed twice with cuDNN's default
+    algorithms (the solves' loops deterministic, as the port runs them),
+    and how far apart the two are."""
+    from rewriting_torch.ops import precision
+    from rewriting_torch.rewrite.multi import batch_apply_edits
+
+    again = build_goals(rw, requests)
+    row = {"goals_in": max(apart(a[0]["fmap"], b[0]["fmap"])
+                           for a, b in zip(goals, again)),
+           "goals_out": max(apart(a[1], b[1]) for a, b in zip(goals, again)),
+           "directions": max(apart(a[2], b[2])
+                             for a, b in zip(goals, again))}
+    conv_fn = rw.fast_parts_cached()[0]
+    w4 = rw.target_weight()[0]
+    with torch.no_grad():
+        x = goals[0][0]["fmap"]
+        row["base_conv"] = apart(conv_fn(x, w4), conv_fn(x, w4))
+        t1, t2 = (rw._target(rw.params, goals[0][0])["fmap"]
+                  for _ in range(2))
+        row["target_forward"] = apart(t1, t2)
+    s1, s2 = alone(steps), alone(steps)
+    b1, b2 = batch(steps), batch(steps)
+    row.update({"steps": steps, "alone_twice_w": apart(s1[0], s2[0]),
+                "batch_twice_w": apart(b1[0], b2[0])})
+    w1, _ = batch_apply_edits(rw, requests, niter=steps)
+    w2, _ = batch_apply_edits(rw, requests, niter=steps)
+    row["batch_apply_edits_twice_w"] = max(apart(a, b)
+                                           for a, b in zip(w1, w2))
+    with precision.deterministic():
+        w1, _ = batch_apply_edits(rw, requests, niter=steps)
+        w2, _ = batch_apply_edits(rw, requests, niter=steps)
+    row["batch_apply_edits_twice_w_deterministic"] = max(
+        apart(a, b) for a, b in zip(w1, w2))
+    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,12 @@ import pytest
 import torch
 
 import chip_smoke
+from rewriting_torch.dissect import dissect
+from rewriting_torch.metrics import distances, lpips
 from rewriting_torch.models import ProgressiveGenerator, zoo
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2
 from rewriting_torch.rewrite import ProgressiveGanRewriter, SeqStyleGanRewriter
+from rewriting_torch.stats import RunningQuantile
 from rewriting_torch.utils import paramio
 from rewriting_torch.utils.zdataset import z_dataset_for_model
 
@@ -38,14 +41,17 @@ print(len(names), loaded)
 print(" ".join(names))
 """
 
-# the modules of the sampling slice and of slice 7, which the walk must
-# reach
+# the modules of the sampling slice and of slices 7 and 8, which the walk
+# must reach
 SLICE2 = ("ops.upconv_blur", "ops.upsample2x", "metrics.sample",
           "metrics.sample_edited", "metrics.load_mask", "utils.imgsave",
           "utils.workerpool", "utils.pidfile", "utils.pbar")
 SLICE7 = ("models.proggan", "rewrite.multi", "core.instrument",
           "metrics.watermark", "ops.grouped", "utils.paramio",
           "utils.easydict", "utils.profiling", "utils.show")
+SLICE8 = ("stats.quantile", "stats.running", "stats.tally", "dissect",
+          "utils.upsample", "metrics.lpips", "metrics.distances",
+          "metrics.segio", "metrics.load_seg")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -55,7 +61,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2 + SLICE7:
+    for name in SLICE2 + SLICE7 + SLICE8:
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -117,6 +123,20 @@ def test_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
     paramio.save_params(str(tmp_path / "p.npz"), pg_params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         paramio.load_params(str(tmp_path / "p.npz"), **kw)
+    params = lpips.init_params(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lpips.LPIPS(params, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distances.PerceptualLoss(params=params, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dissect(pg, pg_params, "layer2", None, ["-"], str(tmp_path / "d"),
+                **kw)
+    # the quantile sketch follows its batches unless given a device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RunningQuantile(device="cuda")
+    rq = RunningQuantile()
+    rq.add(torch.ones(4, 2))
+    assert rq.levels[0].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):

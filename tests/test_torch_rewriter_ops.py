@@ -116,13 +116,21 @@ def test_svd_and_mean_directions_match_jax(pair, req, method, rank):
 
 
 def test_key_methods_and_gandissect(pair, req):
+    """gandissect gives one-hot units (held against the JAX package in
+    tests/test_torch_rewriter_quantiles.py), also as the constructor's
+    key method; unknown methods and a rank-2 mean raise."""
     jr, tr = pair
-    with pytest.raises(NotImplementedError, match="quantile"):
-        tr.multi_key_from_selection(req["key"], key_method="gandissect")
-    with pytest.raises(NotImplementedError, match="quantile"):
+    got = tr.multi_key_from_selection(req["key"], rank=2,
+                                      key_method="gandissect")
+    assert got.shape == (2, tr.k_shape[-1]) and (got.sum(1) == 1).all()
+    rw = SeqStyleGanRewriter(tr.model, tr.original_params, tr.zds,
+                             layernum=LAYER, key_method="gandissect",
+                             stats_batch_size=BATCH, cachedir=tr.cachedir,
+                             device="cpu")
+    assert torch.equal(rw.multi_key_from_selection(req["key"], rank=2), got)
+    with pytest.raises(ValueError):
         SeqStyleGanRewriter(tr.model, tr.original_params, tr.zds,
-                            layernum=LAYER, key_method="gandissect",
-                            device="cpu")
+                            layernum=LAYER, key_method="nope", device="cpu")
     with pytest.raises(ValueError):
         tr.multi_key_from_selection(req["key"], key_method="nope")
     with pytest.raises(ValueError):

@@ -16,8 +16,9 @@ images of the published model, and the weights here are random).
   render.
 - The statistics pass of the covariance model fills the cache that the
   erase's rewriter reads.
-- ``"gandissect"`` raises ``NotImplementedError`` (it needs the quantile
-  sketch, ROADMAP.md queue 1 item 5).
+- ``"gandissect"`` zeroes the weight along its units (held against the
+  JAX package in tests/test_torch_rewriter_quantiles.py); an unknown
+  method raises ``ValueError``.
 """
 
 import json
@@ -143,10 +144,22 @@ def test_ours_matches_jax(setup, tmp_path, monkeypatch):
 
 
 def test_gandissect_raises(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="quantile"):
+    """gandissect no longer raises: it zeroes the weight's component along
+    its `drank` one-hot units; an unknown method raises ValueError."""
+    gw = watermark.erase_watermark(
+        setup["tm"], setup["tp"], None, setup["request"], LAYER,
+        str(tmp_path), erasemethod="gandissect", drank=2,
+        sample_size=SAMPLES, save_images=False)
+    units = gw.multi_key_from_selection(setup["request"]["key"],
+                                        rank=2).argmax(1)
+    w = gw.target_weight()
+    assert float(w[..., units, :, :].abs().max()) == 0.0
+    assert float(gw.original_params[gw.weight_stage()]["weight"][
+        ..., units, :, :].abs().max()) > 0
+    with pytest.raises(ValueError, match="erasemethod"):
         watermark.erase_watermark(
             setup["tm"], setup["tp"], None, setup["request"], LAYER,
-            str(tmp_path), erasemethod="gandissect", sample_size=4)
+            str(tmp_path), erasemethod="nope", sample_size=4)
 
 
 def test_covariance_model_fills_the_cache(setup, tmp_path):
