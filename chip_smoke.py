@@ -64,11 +64,25 @@ set to 0 just before it and read just after:
 - Search: ``ranking_for_key`` at layer 8 over 1000 z against a direct
   ranking, and the renders with the key outlined;
 - ``dissect`` of ProgGAN church-256 ``layer4`` over 1000 z upsampled to
-  64x64, with a toy segmenter (none is ported); no kernel on this path;
+  64x64, with a toy segmenter (phase 28 runs the real one); no kernel
+  on this path;
 - the all-weights "overfit" baseline (``apply_overfit``, 201 steps, plain
   and with a seeded VGG16's relu3_3 features): K2 forward and backward at
   all six upsampling layers a step; then ``compute_dl`` (l1, LPIPS) of the
-  clean against the edited PNGs.
+  clean against the edited PNGs;
+- the metric networks and segmenters on seeded weights written under the
+  released file names (``write_seeded_weights``) and read through
+  ``$REWRITING_TPU_WEIGHTS``: FID (the pytorch-fid Inception at 299
+  pixels; decode and Inception rates, ``compute_fid`` of the clean against
+  the edited PNGs and of a set with itself, card against CPU features,
+  ``get_fid.model_stats`` over 256 z of church-256, the ``fid`` and
+  ``get_fid --compare`` command lines); ``load_segmenter("netpqc")``
+  (UPerNet-50 at the released head widths with all parts and quads,
+  merged with the colour segmenter) and the face parser, card against
+  CPU, ``predict_single_class``; the smile count with the mouth heuristic
+  and with SlimNet; ``python3 -m rewriting_torch.dissect`` of phase 15's
+  checkpoint at ``layer4`` with ``--seg netpqc``.  No kernel is on these
+  paths but the blur (K2) of ``model_stats``'s sampling.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -548,7 +562,8 @@ print("launches " + json.dumps({
 
 def run_cli(module: str, args, cwd: str, env: dict) -> dict:
     """Run ``python3 -m module args`` (through CLI_WRAPPER) in `cwd`;
-    returns its wall time and launch counts; raises if it fails."""
+    returns its wall time, the last line it printed and its launch counts;
+    raises if it fails."""
     t1 = time.time()
     proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, module]
                           + list(args), cwd=cwd, env=env, capture_output=True,
@@ -557,10 +572,13 @@ def run_cli(module: str, args, cwd: str, env: dict) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"python3 -m {module} {' '.join(args)} exited "
                              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    counts = [line for line in proc.stdout.splitlines()
-              if line.startswith("launches ")]
+    lines = proc.stdout.splitlines()
+    counts = [line for line in lines if line.startswith("launches ")]
+    printed = [line for line in lines if line and not line.startswith(
+        "launches ")]
     print(f"python3 -m {module} {' '.join(args)}: {wall:.3f} s wall")
-    return {"wall_s": wall, **json.loads(counts[-1][len("launches "):])}
+    return {"wall_s": wall, "output": printed[-1] if printed else "",
+            **json.loads(counts[-1][len("launches "):])}
 
 
 def _decode(np, path):
@@ -1632,7 +1650,7 @@ def check_search(rw, kblur, k: int = 12, nrender: int = 12) -> dict:
 
 class ToySegmenter:
     """Phases 23 and 24's segmenter: class 1 where an image's red channel
-    is above 0, else 2 (tests/test_dissect.py's; no segmenter is ported)."""
+    is above 0, else 2 (tests/test_dissect.py's): a cheap, known labelling."""
 
     def segment_batch(self, imgs):
         import torch
@@ -1845,6 +1863,501 @@ def check_damage_metric(clean_dir: str, edited_dir: str, workdir: str,
             raise AssertionError(f"compute_dl {metric} {total} over {count}"
                                  f", direct {want} over {want_count}")
     return out
+
+
+# -- slice 9: the metric networks and the segmenters ---------------------------
+
+# the released unified-parsing model's head widths (its labels.json): 335
+# objects and 26 materials, "-" first in each, 365 scenes, 153 parts of 40
+# objects.  The labels chip_smoke.py writes are stand-ins at these widths.
+UPP_WIDTHS = {"object": 335, "material": 26, "scene": 365, "owners": 40,
+              "parts": 153}
+# the netdissect colour model's vocabulary
+COLOURS = ("black", "blue", "brown", "gray", "green", "orange", "pink",
+           "purple", "red", "white", "yellow")
+SEG_TOL = 1e-4          # heads' scores card vs CPU, of max; label margins
+QUICKDISSECT_SIZE = 200
+
+
+def upp_labeldata(widths=UPP_WIDTHS) -> dict:
+    """A unified-parsing labels json at `widths`: "sky", "building" and
+    "person" among the objects with parts (the reference's default part
+    owners), parts shared between objects, and one part ("window") that is
+    also an object, which the segmenter numbers as the object."""
+    objects = ["-", "sky", "building", "person", "tree", "window"]
+    objects += [f"object{i}" for i in range(len(objects), widths["object"])]
+    pool = [f"part{i}" for i in range(max(widths["parts"] - 13, 1))]
+    pool.append("window")
+    object_part, n = {}, 0
+    for k, owner in enumerate(objects[1:1 + widths["owners"]]):
+        count = widths["parts"] // widths["owners"] + (
+            k < widths["parts"] % widths["owners"])
+        object_part[owner] = [pool[(n + j) % len(pool)]
+                              for j in range(count)]
+        n += count
+    used = {p for names in object_part.values() for p in names}
+    return {"object": objects,
+            "part": ["-"] + [p for p in pool if p in used],
+            "material": ["-"] + [f"material{i}"
+                                 for i in range(1, widths["material"])],
+            "scene": [f"scene{i}" for i in range(widths["scene"])],
+            "object_part": object_part}
+
+
+def write_seeded_weights(root: str, labeldata: dict,
+                         which=("inception", "slimnet", "face", "upp",
+                                "color"), colour_segsizes=None) -> dict:
+    """Seeded weights of the slice-9 networks under the released file
+    names in `root` (the layout ``$REWRITING_TPU_WEIGHTS`` gives): the
+    pytorch-fid Inception, SlimNet's training checkpoint, the face parser,
+    unified parsing with `labeldata`, the colour segmenter.  BatchNorms are
+    identities.  Returns {file: MiB}."""
+    import torch
+
+    from rewriting_torch.metrics import fid, inception, slimnet
+    from rewriting_torch.segment import faceparse, semantic
+    from rewriting_torch.segment.segmenter import upernet_for
+
+    files = {}
+
+    def save(obj, *names):
+        path = os.path.join(root, *names)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if isinstance(obj, dict) and all(isinstance(v, (str, list, dict))
+                                         for v in obj.values()):
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        else:
+            torch.save(obj, path)
+        files[os.path.join(*names)] = os.path.getsize(path) / 2 ** 20
+
+    if "inception" in which:
+        save(inception.state_dict_from_params(inception.init_params(0)),
+             fid.WEIGHTS_FILENAME)
+    if "slimnet" in which:
+        save({"epoch": 20, "model_state_dict": {
+            k: torch.from_numpy(v)
+            for k, v in slimnet.init_random_state_dict(0).items()}},
+            slimnet.WEIGHTS_FILENAME)
+    if "face" in which:
+        net = faceparse.BiSeNet()
+        save(net.params_to_torch(net.init_params(0)),
+             faceparse.WEIGHTS_FILENAME)
+    if "upp" in which:
+        net = upernet_for(labeldata)
+        enc, dec = net.params_to_torch(net.init_params(0))
+        save(enc, "upp", "encoder_epoch_40.pth")
+        save(dec, "upp", "decoder_epoch_40.pth")
+        save(labeldata, "upp", "labels.json")
+    if "color" in which:
+        base = ("segmodel", "color-resnet18dilated-ppm_deepsup")
+        save(semantic.resnet18_deepstem_to_torch(
+            semantic.init_resnet18_deepstem(1)), *base, "encoder_epoch_20.pth")
+        ppm = semantic.PPMDecoder(len(COLOURS), 512)
+        save(ppm.params_to_torch(ppm.init_params(2)), *base,
+             "decoder_epoch_20.pth")
+        meta = {"labels": [{"name": c} for c in COLOURS],
+                "imageformat": {"byteorder": "BGR",
+                                "mean": [0.485, 0.456, 0.406],
+                                "stdev": [0.229, 0.224, 0.225]}}
+        if colour_segsizes:
+            meta["segsizes"] = list(colour_segsizes)
+        save(meta, *base, "labels.json")
+    return files
+
+
+@contextlib.contextmanager
+def weights_env(path: str):
+    """``$REWRITING_TPU_WEIGHTS`` set to `path` within."""
+    old = os.environ.get("REWRITING_TPU_WEIGHTS")
+    os.environ["REWRITING_TPU_WEIGHTS"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REWRITING_TPU_WEIGHTS"]
+        else:
+            os.environ["REWRITING_TPU_WEIGHTS"] = old
+
+
+def cli_env(weights: str) -> dict:
+    return dict(os.environ, REWRITING_TPU_WEIGHTS=weights,
+                PYTHONPATH=os.pathsep.join(
+                    [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def png_paths(directory: str):
+    """The ``{i}.png`` of a samples directory in image order."""
+    stems = sorted(int(n[:-4]) for n in os.listdir(directory)
+                   if n.endswith(".png") and n[:-4].isdecimal())
+    return [os.path.join(directory, f"{i}.png") for i in stems]
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def top2_margin(scores):
+    """The gap between the two largest entries along axis 1."""
+    top = scores.topk(2, dim=1).values
+    return top[:, 0] - top[:, 1]
+
+
+def self_fid_limit(sigma, n: int) -> float:
+    """The least error to expect of the FID of a set with itself, from
+    scipy's float64 ``sqrtm`` of its singular product: each of the d - r
+    zero eigenvalues of the d x d covariance (rank r = n - 1 for n images)
+    comes out of the square root as about sqrt(eps) times the norm, which
+    the trace bounds."""
+    import numpy as np
+
+    d = sigma.shape[0]
+    rank = min(n - 1, d)
+    trace = float(np.trace(sigma.astype(np.float64)))
+    return max(d - rank, 1) * float(np.sqrt(np.finfo(np.float64).eps)) \
+        * trace
+
+
+def check_fid(model, params, clean_dir: str, edited_dir: str,
+              workdir: str, weights: str, counters, nz: int = 256,
+              batch_size: int = 16, device: str = "cuda") -> dict:
+    """Phase 25: FID through the seeded pytorch-fid Inception that
+    ``FeatureExtractor()`` reads from `weights` (``$REWRITING_TPU_WEIGHTS``
+    within): decode images/s (``native.read_batches`` alone), Inception
+    images/s (features of device batches alone), ``compute_fid`` of the
+    clean PNGs against the edited ones; the card's features against the
+    CPU's on 4 images (FORWARD_RTOL of the largest);
+    ``get_fid.model_stats`` over `nz` z of (model, params) with its K2
+    launches (`counters()`); the ``fid`` command line on the two
+    directories (the in-process FID within 1e-3) and ``get_fid --compare``
+    of the clean set's statistics with themselves (within
+    ``self_fid_limit``).  Three 2048 x 2048 ``sqrtm`` on the host."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch import native
+    from rewriting_torch.metrics import fid, get_fid
+
+    t1 = time.time()
+    fe = fid.FeatureExtractor(batch_size=batch_size, device=device)
+    load_s = time.time() - t1
+    paths = png_paths(clean_dir)
+    t1 = time.time()
+    batches = list(native.read_batches(paths, batch_size))
+    decode_s = time.time() - t1
+    dev = [torch.as_tensor(b).to(device) for b in batches]
+    fe.device_features(dev[0])
+    sync(device)
+    t1 = time.time()
+    feats = [fe.device_features(b) for b in dev]
+    sync(device)
+    inception_s = time.time() - t1
+    n = sum(len(b) for b in batches)
+    parts = {}
+    t1 = time.time()
+    with timed_methods(parts, device, (fid, "compute_feature_stats"),
+                       (fid, "calculate_frechet_distance")):
+        distance = fid.compute_fid(clean_dir, edited_dir, fe, batch_size)
+    fid_s = time.time() - t1
+    mu, sigma = fid.compute_feature_stats(iter(dev), fe)
+    cpu = fid.FeatureExtractor(device="cpu")
+    rel = rel_diff(feats[0][:4].cpu(), torch.as_tensor(cpu(batches[0][:4])))
+    base = counters()
+    sync(device)
+    t1 = time.time()
+    mu_m, sigma_m = get_fid.model_stats(model, params, n=nz,
+                                        batch_size=batch_size, feature_fn=fe)
+    model_s = time.time() - t1
+    launches = {k: v - base[k] for k, v in counters().items()}
+    print(f"FID (seeded Inception, {n} clean church-256 PNGs): checkpoint "
+          f"read in {load_s:.3f} s; decode {n / decode_s:.2f} images/s "
+          f"(read_batches alone, {decode_s:.3f} s); Inception "
+          f"{n / inception_s:.2f} images/s (device batches of {batch_size} "
+          f"alone, {inception_s:.3f} s); compute_fid clean vs edited "
+          f"{distance:.6e} in {fid_s:.3f} s (the two sets' statistics "
+          f"{parts['compute_feature_stats']:.3f} s, the Fréchet distance "
+          f"{parts['calculate_frechet_distance']:.3f} s); card vs CPU features "
+          f"{rel:.3e} of max (limit {FORWARD_RTOL}); model_stats over {nz} "
+          f"z at batch {batch_size} {model_s:.3f} s ({nz / model_s:.2f} "
+          f"images/s), launches {launches}")
+    if not (np.isfinite(distance) and distance > 0):
+        raise AssertionError(f"FID clean vs edited {distance}")
+    if not rel <= FORWARD_RTOL:
+        raise AssertionError(f"Inception card vs CPU {rel}")
+    if mu_m.shape != (2048,) or sigma_m.shape != (2048, 2048) or \
+            not np.isfinite(sigma_m).all():
+        raise AssertionError(f"model_stats {mu_m.shape} {sigma_m.shape}")
+    if launches["k2"] <= 0 or launches["k2_general"] or launches["k1"] or \
+            launches["k3"] or launches["k3_general"]:
+        raise AssertionError(f"model_stats launches {launches}")
+    clean_npz = os.path.join(workdir, "fid_clean.npz")
+    fid.save_stats(clean_npz, mu, sigma)
+    fid.save_stats(os.path.join(workdir, "fid_model.npz"), mu_m, sigma_m)
+    env = cli_env(weights)
+    cli = run_cli("rewriting_torch.metrics.fid",
+                  [clean_dir, edited_dir, "--batch_size", str(batch_size)],
+                  workdir, env)
+    compare = run_cli("rewriting_torch.metrics.get_fid",
+                      ["--compare", clean_npz, clean_npz], workdir, env)
+    self_fid = float(compare["output"])
+    trace = float(np.trace(sigma.astype(np.float64)))
+    limit = self_fid_limit(sigma, n)
+    print(f"  fid command line {float(cli['output']):.6e} (in process "
+          f"{distance:.6e}, limit 1e-3 of it); get_fid --compare of the "
+          f"clean statistics with themselves {self_fid:.3e} (trace "
+          f"{trace:.6e}: {abs(self_fid) / trace:.3e} of it; limit "
+          f"{limit:.3e}, {limit / trace:.3e} of it); their launches {cli}, "
+          f"{compare}")
+    if not abs(float(cli["output"]) - distance) <= 1e-3 * distance:
+        raise AssertionError(f"fid command line {cli['output']}, in process "
+                             f"{distance}")
+    if not abs(self_fid) <= limit:
+        raise AssertionError(f"FID of a set with itself {self_fid}, limit "
+                             f"{limit}")
+    return {"images": n, "load_s": load_s,
+            "decode_images_per_s": n / decode_s,
+            "inception_images_per_s": n / inception_s,
+            "compute_fid_s": fid_s, "compute_fid_parts_s": parts,
+            "fid_clean_edited": distance,
+            "fid_self": self_fid, "trace": trace, "fid_self_limit": limit,
+            "card_vs_cpu": rel, "model_stats_s": model_s,
+            "model_stats_launches": launches, "cli": cli,
+            "compare_cli": compare}
+
+
+def check_segmenters(clean_dir: str, batch_size: int = 16,
+                     device: str = "cuda") -> dict:
+    """Phase 26: ``load_segmenter("netpqc")`` (unified parsing with all
+    parts and quads, merged with the colour segmenter) and
+    ``load_seg_model("faces_clean")`` (BiSeNet at 512) from
+    ``$REWRITING_TPU_WEIGHTS``, each over the clean PNGs as uint8 device
+    batches (ms a batch); on 2 images the card against the CPU: the
+    heads' scores before their softmax within SEG_TOL of their largest,
+    labels equal where the top-two margin exceeds SEG_TOL (the quads of an
+    image where its object labels all agree); ``predict_single_class`` of
+    the most frequent object, material and part against the labels."""
+    import torch
+
+    from rewriting_torch import native
+    from rewriting_torch.metrics.load_seg import load_seg_model
+    from rewriting_torch.segment import load_segmenter
+    from rewriting_torch.segment.nn import resize_nearest
+    from rewriting_torch.segment.semantic import resnet18_dilated_features
+
+    t1 = time.time()
+    seg, labels = load_segmenter("netpqc", device=device)
+    face = load_seg_model("faces_clean", device=device)
+    load_s = time.time() - t1
+    batches = [torch.as_tensor(b).to(device)
+               for b in native.read_batches(png_paths(clean_dir),
+                                            batch_size)]
+    out = {"load_s": load_s, "labels": len(labels)}
+    quads = {}
+    for name, model in (("netpqc", seg), ("face", face)):
+        model.segment_batch(batches[0])
+        sync(device)
+        t1 = time.time()
+        with timed_methods(quads, device, (seg.segmenters[0],
+                                           "expand_segment_quad")):
+            segs = [model.segment_batch(b) for b in batches]
+        sync(device)
+        out[f"{name}_ms_per_batch"] = (time.time() - t1) / len(batches) * 1e3
+        want = (batch_size, 6 if name == "netpqc" else 1) + tuple(
+            batches[0].shape[1:3])
+        if tuple(segs[0].shape) != want or segs[0].dtype != torch.int64 or \
+                segs[0].device != batches[0].device:
+            raise AssertionError(f"{name} labels {segs[0].shape} "
+                                 f"{segs[0].dtype} {segs[0].device}")
+        out[f"{name}_distinct"] = [int(torch.unique(torch.cat(segs)[:, c])
+                                       .numel())
+                                   for c in range(segs[0].shape[1])]
+    out["quad_ms_per_batch"] = quads["expand_segment_quad"] / len(
+        batches) * 1e3
+
+    # the card against the CPU on 2 images (at their size, which is the
+    # segmenters' 256): the heads' scores before their softmax, held; the
+    # softmax maps, printed (at a near tie a softmax moves by up to a
+    # quarter of its logits' change, and seeded logits reach 30-80)
+    x = batches[0][:2]
+    size = tuple(x.shape[1:3])
+    cpu_seg, _ = load_segmenter("netpqc", device="cpu")
+    cpu_face = load_seg_model("faces_clean", device="cpu")
+    upp, col = seg.segmenters
+    cpu_upp, cpu_col = cpu_seg.segmenters
+
+    def colour_logits(s, images):
+        feats = resnet18_dilated_features(s.params["encoder"],
+                                          s.normalize(images),
+                                          s.dilate_scale)
+        return s.decoder.logits(s.params["decoder"], feats, seg_size=size)
+    with torch.no_grad():
+        heads = upp.net.logits(upp.params, upp.normalize(x), size)
+        cheads = cpu_upp.net.logits(cpu_upp.params,
+                                    cpu_upp.normalize(x.cpu()), size)
+        heads["colour"] = colour_logits(col, x)
+        cheads["colour"] = colour_logits(cpu_col, x.cpu())
+    score_err = {k: rel_diff(heads[k].cpu(), cheads[k]) for k in heads}
+    pred, parts = upp.raw_seg_prediction(x)
+    cpred, cparts = cpu_upp.raw_seg_prediction(x.cpu())
+    ccol = cpu_col.raw_seg_prediction(x.cpu())
+    maps = [(pred[k], cpred[k]) for k in pred]
+    maps += [(parts[i], cparts[i]) for i in parts]
+    maps.append((col.raw_seg_prediction(x), ccol))
+    map_err = max(float((a.cpu() - b).abs().max()) for a, b in maps)
+    scores, cscores = face.scores(x), cpu_face.scores(x.cpu())
+    score_err["face"] = rel_diff(scores.cpu(), cscores)
+    card, host = seg.segment_batch(x).cpu(), cpu_seg.segment_batch(x.cpu())
+    sure_obj = top2_margin(cpred["object"]) > SEG_TOL
+    sure = {0: sure_obj, 1: top2_margin(cpred["material"]) > SEG_TOL,
+            2: sure_obj & torch.stack([top2_margin(p) > SEG_TOL
+                                       for p in cparts.values()]).all(0),
+            5: top2_margin(ccol) > SEG_TOL}
+    differ = {c: int(((card[:, c] != host[:, c]) & held).sum())
+              for c, held in sure.items()}
+    whole = [i for i in range(2) if torch.equal(card[i, 0], host[i, 0])]
+    differ["quads"] = int((card[whole][:, 3:5] != host[whole][:, 3:5]).sum())
+    fcard, fhost = face.segment_batch(x).cpu(), cpu_face.segment_batch(
+        x.cpu())
+    fsure = resize_nearest(top2_margin(cscores) > SEG_TOL
+                           * cscores.abs().max(), fcard.shape[-2:])
+    differ["face"] = int(((fcard[:, 0] != fhost[:, 0]) & fsure).sum())
+    held = {c: float(m.float().mean()) for c, m in sure.items()}
+    print(f"segmenters (seeded, {len(labels)} labels): netpqc "
+          f"{out['netpqc_ms_per_batch']:.3f} ms a batch of {batch_size} "
+          f"256-px images (the host quad split "
+          f"{out['quad_ms_per_batch']:.3f} ms of it), face parser "
+          f"{out['face_ms_per_batch']:.3f} ms "
+          f"(at 512); distinct labels a channel {out['netpqc_distinct']}, "
+          f"face {out['face_distinct']}; card vs CPU on 2 images: the "
+          f"heads' scores {score_err} of their largest (limit {SEG_TOL}), "
+          f"softmax maps {map_err:.3e} apart; labels differing where the "
+          f"margin exceeds {SEG_TOL}: {differ} (held shares {held}, quads "
+          f"of images {whole}); loaded in {load_s:.3f} s")
+    if not max(score_err.values()) <= SEG_TOL or any(differ.values()):
+        raise AssertionError(f"segmenters card vs CPU: scores {score_err}, "
+                             f"labels {differ}")
+
+    # predict_single_class against the labels, where they are sure
+    first_part = (len(upp.labeldata["object"]) - 1) * upp.divmult + len(
+        upp.labeldata["material"])
+
+    def most_frequent(values):
+        values = values[values > 0]
+        return int(torch.mode(values).values) if values.numel() else None
+    picks = {"object": (most_frequent(card[:, 0]), 0),
+             "material": (most_frequent(card[:, 1]), 1),
+             "part": (most_frequent(card[:, 2][card[:, 2] >= first_part]),
+                      2)}
+    checked = {}
+    for kind, (classnum, channel) in picks.items():
+        if classnum is None:
+            checked[kind] = None
+            continue
+        score, mask = seg.predict_single_class(x, classnum)
+        labels_c = card[:, channel] == classnum
+        bad = int(((mask.cpu() != labels_c) & sure[channel]).sum())
+        checked[kind] = {"class": classnum, "pixels": int(labels_c.sum()),
+                         "differ": bad, "score_max": float(score.max())}
+        if bad or not bool(torch.isfinite(score).all()):
+            raise AssertionError(f"predict_single_class {kind} {classnum}: "
+                                 f"{bad} pixels differ from the labels")
+    print(f"  predict_single_class against the labels: {checked}")
+    if checked["object"] is None or checked["material"] is None:
+        raise AssertionError(f"no object or material label to check: "
+                             f"{checked}")
+    out.update({"score_err": score_err, "map_err": map_err,
+                "differ": differ, "held": held,
+                "predict_single_class": checked})
+    return out
+
+
+def check_smiles(clean_dir: str, n: int = 64, batch_size: int = 16,
+                 device: str = "cuda") -> dict:
+    """Phase 27: ``count_smiles`` over the clean PNGs with the mouth
+    heuristic (the face parser from ``$REWRITING_TPU_WEIGHTS``) and with
+    ``default_classifier()`` (SlimNet, since celeba_20.pth is there); each
+    count equals the classifier's direct count on the stacked images;
+    images/s of each."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.metrics import num_smiles, slimnet
+    from rewriting_torch.native import read_image_rgb
+    from rewriting_torch.utils.renormalize import renormalize
+
+    stacked = renormalize(np.stack([read_image_rgb(p) for p in png_paths(
+        clean_dir)[:n]]).astype(np.float32) / 255.0, "pt", "zc")
+    out = {}
+    for name, clf in (("mouth", num_smiles.mouth_heuristic_classifier(
+                          device=device)),
+                      ("slimnet", num_smiles.default_classifier(device))):
+        if name == "slimnet" and not isinstance(clf,
+                                                slimnet.SlimNetClassifier):
+            raise AssertionError("default_classifier is not SlimNet")
+        clf(stacked[:batch_size])
+        sync(device)
+        t1 = time.time()
+        count = num_smiles.count_smiles(clean_dir, n=n,
+                                        batch_size=batch_size,
+                                        classifier=clf)
+        sync(device)
+        wall = time.time() - t1
+        direct = int(torch.as_tensor(clf(stacked)).sum())
+        out[name] = {"count": count, "direct": direct, "s": wall,
+                     "images_per_s": n / wall}
+        print(f"count_smiles {name}: {count} of {n} ({n / wall:.2f} "
+              f"images/s, {wall:.3f} s); the direct count {direct}")
+        if count != direct:
+            raise AssertionError(f"count_smiles {name} {count}, direct "
+                                 f"{direct}")
+    return out
+
+
+def check_quickdissect(checkpoint: str, workdir: str, weights: str,
+                       sample_size: int = QUICKDISSECT_SIZE,
+                       layer: str = "layer4") -> dict:
+    """Phase 28: ``python3 -m rewriting_torch.dissect`` on the ProgGAN
+    checkpoint file with ``--seg netpqc`` from `weights`: ``iou.npy``
+    finite in [0, 1], a strip per unit, the done marker, ``DissectVis``
+    reading them back, and no kernel launched."""
+    import numpy as np
+
+    from rewriting_torch.dissect import DissectVis
+
+    root = os.path.join(workdir, "quickdissect")
+    run = run_cli("rewriting_torch.dissect",
+                  ["--model", checkpoint, "--layer", layer, "--seg",
+                   "netpqc", "--sample_size", str(sample_size), "--outdir",
+                   root], workdir, cli_env(weights))
+    name = os.path.splitext(os.path.basename(checkpoint))[0]
+    outdir = os.path.join(root, name, layer, "netpqc", str(sample_size))
+    iou = np.load(os.path.join(outdir, "iou.npy"))
+    strips = [n for n in os.listdir(os.path.join(outdir, "imgs"))
+              if n.endswith(".png")]
+    vis = DissectVis(outdir=root, model=name, layers=[layer], seg="netpqc",
+                     sample_size=sample_size)
+    units = len(vis.labels[layer])
+    strip = vis.image(layer, units - 1)
+    labelled = sorted({vis.label(layer, u) for u in range(units)})
+    launches = {k: run[k] for k in ("k1", "k2", "k2_backward", "k2_general",
+                                    "k3")}
+    print(f"quickdissect command line, ProgGAN {layer} ({units} units) with "
+          f"netpqc over {sample_size} z: {run['wall_s']:.3f} s wall; iou "
+          f"{iou.shape} in [{iou.min():.4f}, {iou.max():.4f}]; "
+          f"{len(strips)} strips; {len(labelled)} distinct best labels; "
+          f"DissectVis read {strip.shape} {strip.dtype}; launches {launches}")
+    if not np.isfinite(iou).all() or iou.min() < 0 or iou.max() > 1 or \
+            iou.shape[0] != units or units != 512 or len(strips) != units:
+        raise AssertionError(f"quickdissect wrote iou {iou.shape}, "
+                             f"{len(strips)} strips")
+    if not os.path.isfile(os.path.join(outdir, "done.txt")) or \
+            strip.dtype != np.uint8 or any(launches.values()):
+        raise AssertionError(f"quickdissect: done marker, strip {strip.dtype}"
+                             f", launches {launches}")
+    return {"wall_s": run["wall_s"], "units": units,
+            "iou_range": [float(iou.min()), float(iou.max())],
+            "labels": len(labelled), "launches": launches}
 
 
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
@@ -2615,6 +3128,66 @@ def main() -> int:
         slice8["overfit"] = since(base)
         print(json.dumps({"overfit": overfit}))
         phase("24 overfit baseline and damage metric", t0)
+
+        # 25-28: slice 9's paths, on seeded weights written under the
+        # released file names and read through $REWRITING_TPU_WEIGHTS
+        t0 = time.time()
+        weights9 = os.path.join(work.name, "weights9")
+        files = write_seeded_weights(weights9, upp_labeldata())
+        print(f"seeded slice-9 weights written in {time.time() - t0:.3f} s: "
+              + ", ".join(f"{k} {v:.1f} MiB" for k, v in files.items()))
+        clean_dir = os.path.join(keep.name, "clean")
+        slice9 = {}
+
+        def with_cli(base, *runs):
+            """The launches since `base` plus those of command lines."""
+            now = since(base)
+            return {k: v + sum(r.get(k, 0) for r in runs)
+                    for k, v in now.items()}
+        with weights_env(weights9):
+            base = counts()
+            fidres = check_fid(model, params, clean_dir,
+                               os.path.join(keep.name, "edited"), work.name,
+                               weights9, counts)
+            slice9["fid"] = with_cli(base, fidres["cli"],
+                                     fidres["compare_cli"])
+            print(json.dumps({"fid": fidres}))
+            phase("25 FID", t0)
+
+            t0 = time.time()
+            base = counts()
+            segres = check_segmenters(clean_dir)
+            slice9["segmenters"] = since(base)
+            print(json.dumps({"segmenters": segres}))
+            phase("26 segmenters", t0)
+
+            t0 = time.time()
+            base = counts()
+            smiles = check_smiles(clean_dir)
+            slice9["smiles"] = since(base)
+            print(json.dumps({"smiles": smiles}))
+            phase("27 smile count", t0)
+
+            t0 = time.time()
+            base = counts()
+            quick = check_quickdissect(pg["path"], work.name, weights9)
+            slice9["quickdissect"] = with_cli(base, quick["launches"])
+            print(json.dumps({"quickdissect": quick}))
+            phase("28 quickdissect from files", t0)
+        # only FID's model statistics sample a generator (K2)
+        stray = {name: {k: v for k, v in n.items()
+                        if v and not (name == "fid" and k == "k2")}
+                 for name, n in slice9.items()}
+        print(f"launches on phases 25-28 (command lines included): {slice9}")
+        if any(stray.values()):
+            raise AssertionError(f"phases 25-28 launched {stray}")
+        kernels["blur2d"]["slice9_launches"] = {
+            name: n["k2"] for name, n in slice9.items()}
+        kernels["upconv_blur"]["slice9_launches"] = {
+            name: n["k1"] for name, n in slice9.items()}
+        kernels["upsample2x"]["slice9_launches"] = {
+            name: n["k3"] + n["k3_general"] for name, n in slice9.items()}
+
         k13 = {name: {key: n[key] for key in ("k1", "k3", "k3_general")}
                for name, n in slice8.items()}
         print(f"K1 and K3 launches on phases 19-24: {k13}")

@@ -1,12 +1,14 @@
-"""Carry one set of StyleGAN2 or ProgGAN weights between the JAX package
-and the port.
+"""Carry one set of weights between the JAX package and the port.
 
 The JAX package's parameter tree, given as nested dicts of numpy arrays,
 uses the same stage names and torch-order weights as the port.  For
 StyleGAN2 only the const input (NHWC ``(1, 4, 4, C)`` there, ``(1, C, 4,
 4)`` here) and the noise buffers (``(1, h, w, 1)`` there, ``(1, 1, h, w)``
 here) change layout; a ProgGAN tree (OIHW conv weights and biases only)
-carries across as it is.
+carries across as it is, and so do the metric networks' and segmenters'
+(InceptionV3, the ResNets, UPerNet, BiSeNet, the dilated ResNet-18 with
+PPM: OIHW convs in nested dicts and lists) through :func:`tree_from_jax`.
+SlimNet keeps HWIO weights there: ``metrics.slimnet.params_from_jax``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .core.tree import tree_map
 
 # (stage, param name prefix) of the NHWC arrays in the JAX package's tree
 _NHWC = (("input", "input"), ("noises", "noise_"))
@@ -48,3 +52,10 @@ def params_to_numpy(params: Dict[str, dict]) -> Dict[str, dict]:
             arr = arr.transpose(0, 2, 3, 1)
         return np.array(arr)
     return {stage: convert(stage, stage, sub) for stage, sub in params.items()}
+
+
+def tree_from_jax(tree, device=None):
+    """A JAX package params tree of numpy arrays (nested dicts and lists)
+    as float32 tensors on `device` (default: the CPU), layouts kept."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                           device=device), tree)

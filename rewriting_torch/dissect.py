@@ -13,12 +13,24 @@ through the port's own PNG decoder as ``uint8`` arrays.
 
 A segmenter is an object whose ``segment_batch(images)`` maps the (B, H,
 W, 3) images, a tensor on the device in [-1, 1], to (B, M, H, W) integer
-label maps on the device (0: no label).  No segmenter is ported yet, so
-the command line (the JAX package's ``main``) waits for one.
+label maps on the device (0: no label): those of ``segment/``, or any
+other.
+
+Command line (reference quickdissect.py:10-33)::
+
+    python3 -m rewriting_torch.dissect [--model church] [--layer layer4]
+        [--seg netpqc] [--sample_size 1000] [--outdir results]
+
+dissects a ProgGAN, named as in ``models/zoo.py`` or given as a path to a
+checkpoint file, with ``segment.load_segmenter(--seg)`` (the released
+models in ``$REWRITING_TPU_WEIGHTS``), on the card, into
+``<outdir>/<model>/<layer>/<seg>/<sample_size>``, claimed with a pidfile
+and marked done at the end.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 
@@ -28,7 +40,7 @@ import torch
 from .core.instrument import InstrumentedPipeline
 from .models.stylegan2 import params_to
 from .stats import tally
-from .utils import imgsave, imgviz, pbar
+from .utils import imgsave, imgviz, pbar, pidfile
 from .utils.device import resolve_device
 from .utils.renormalize import decode_png
 from .utils.upsample import upsampler
@@ -171,3 +183,31 @@ class DissectVis:
                 result = decode_png(f.read())
             self.images[layer][unit] = result
         return result
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="quickdissect")
+    ap.add_argument("--outdir", default="results")
+    ap.add_argument("--model", default="church",
+                    help="a ProgGAN of the zoo, or a checkpoint file")
+    ap.add_argument("--layer", default="layer4")
+    ap.add_argument("--seg", default="netpqc")
+    ap.add_argument("--sample_size", type=int, default=1000)
+    args = ap.parse_args(argv)
+    from .models.zoo import load_proggan
+    from .segment import load_segmenter
+    path = args.model if os.path.isfile(args.model) else None
+    name = os.path.splitext(os.path.basename(path))[0] if path \
+        else args.model
+    outdir = os.path.join(args.outdir, name, args.layer, args.seg,
+                          str(args.sample_size))
+    pidfile.reserve_dir(outdir)
+    model, params = load_proggan(name, path=path)
+    segmodel, seglabels = load_segmenter(args.seg)
+    dissect(model, params, args.layer, segmodel, seglabels, outdir,
+            sample_size=args.sample_size, device=model.device)
+    pidfile.mark_job_done(outdir)
+
+
+if __name__ == "__main__":
+    main()

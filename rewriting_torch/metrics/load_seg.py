@@ -1,8 +1,9 @@
 """Experiment -> segmenter and source/target label registry.
 
 The port's counterpart of the JAX package's ``metrics/load_seg.py``
-(reference metrics/load_seg.py).  Instantiating the segmenter
-(``load_seg_model``) waits for the segmenters' port.
+(reference metrics/load_seg.py): the registry, and ``load_seg_model``,
+which builds an experiment's segmenter from the released weights in
+``$REWRITING_TPU_WEIGHTS``.
 """
 
 from __future__ import annotations
@@ -36,3 +37,14 @@ def load_seg_info_from_exp_name(exp_name: str):
     labels) of an experiment."""
     segmenter_name, srcc, tgtc, srcs, tgts = info[exp_name]
     return segmenter_name, srcc, tgtc, srcs, tgts
+
+
+def load_seg_model(exp_name: str, device=None):
+    """The segmenter of an experiment (reference load_seg.py:36-43): the
+    face parser, or ``load_segmenter``'s; on `device` (default ``cuda``)."""
+    seg_name = load_seg_info_from_exp_name(exp_name)[0]
+    if seg_name == "face":
+        from ..segment.faceparse import FaceSegmenter
+        return FaceSegmenter(device=device)
+    from ..segment import load_segmenter
+    return load_segmenter(seg_name, device=device)[0]

@@ -103,9 +103,11 @@ def load_seq_stylegan(category: str, path: Optional[str] = None,
 def load_proggan(domain: str, path: Optional[str] = None, device=None
                  ) -> Tuple[proggan.ProgressiveGenerator, dict]:
     """(model, params) of a published ProgGAN checkpoint, on ``device``
-    (default ``cuda``).  A file that wraps its weights in ``state_dict``
-    or names them in the old ``features.N`` style loads as well."""
-    sd = load_state(_resolve(PROGGAN_ZOO[domain], PROGGAN_URL, path))
+    (default ``cuda``); with `path`, `domain` only names it.  A file that
+    wraps its weights in ``state_dict`` or names them in the old
+    ``features.N`` style loads as well."""
+    sd = load_state(_resolve(PROGGAN_ZOO.get(domain, domain), PROGGAN_URL,
+                             path))
     if "state_dict" in sd:
         sd = sd["state_dict"]
     if "features.0.conv.weight" in sd:

@@ -219,3 +219,108 @@ def test_dissect_refuses_a_model_on_another_device():
         dissect_mod.dissect(tm, tm.init_params(seed=0), "layer2",
                             ToySegmenter(), LABELS, "unused",
                             device=torch.device("meta"))
+
+
+def test_main_matches_jax(tmp_path, monkeypatch):
+    """The command line, with the zoo's ProgGAN and the segmenter patched
+    to the tiny model and the toy segmenter, against the JAX package's
+    command line on the same params: the same labels, ``iou.npy`` within
+    1e-2, the job marked done; a checkpoint path names the model by its
+    file."""
+    import rewriting_tpu.models.zoo as jax_zoo
+    import rewriting_tpu.segment as jax_segment
+    import rewriting_torch.models.zoo as zoo
+    import rewriting_torch.segment as segment
+    jm = JaxProgGAN(sizes=[8, 8, 8])
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = ProgressiveGenerator(sizes=[8, 8, 8], device="cpu")
+    tp = params_from_jax(tm, jax.tree_util.tree_map(np.asarray, jp))
+    loads = []
+
+    def load_proggan(name, path=None):
+        loads.append((name, path))
+        return tm, tp
+    monkeypatch.setattr(zoo, "load_proggan", load_proggan)
+    monkeypatch.setattr(segment, "load_segmenter",
+                        lambda name: (ToySegmenter(), LABELS))
+    monkeypatch.setattr(jax_zoo, "load_proggan", lambda name: (jm, jp))
+    monkeypatch.setattr(jax_segment, "load_segmenter",
+                        lambda name: (JaxToySegmenter(), LABELS))
+    args = ["--layer", "layer2", "--seg", "toy", "--sample_size", "40"]
+    dissect_mod.main(["--outdir", str(tmp_path / "torch")] + args)
+    monkeypatch.setattr("sys.argv", ["dissect", "--outdir",
+                                     str(tmp_path / "jax")] + args)
+    jax_dissect.main()
+    t, j = (str(tmp_path / name / "church" / "layer2" / "toy" / "40")
+            for name in ("torch", "jax"))
+    assert loads == [("church", None)]
+    for d in (t, j):
+        assert os.path.isfile(os.path.join(d, "done.txt"))
+    with open(os.path.join(t, "labels.json")) as f, \
+            open(os.path.join(j, "labels.json")) as g:
+        got, want = json.load(f)["units"], json.load(g)["units"]
+    assert [(u["unit"], u["label"]) for u in got] == \
+        [(u["unit"], u["label"]) for u in want]
+    np.testing.assert_allclose(np.load(os.path.join(t, "iou.npy")),
+                               np.load(os.path.join(j, "iou.npy")),
+                               atol=1e-2, rtol=0)
+    path = tmp_path / "proggan_mine.pth"
+    path.write_bytes(b"")
+    dissect_mod.main(["--outdir", str(tmp_path / "torch"), "--model",
+                      str(path)] + args)
+    assert loads[-1] == ("proggan_mine", str(path))
+    assert os.path.isfile(str(tmp_path / "torch" / "proggan_mine" / "layer2"
+                              / "toy" / "40" / "done.txt"))
+
+
+def test_main_from_files_matches_jax(tmp_path, monkeypatch):
+    """The command line from files on the CPU (the entry points' default
+    device made the CPU): ProgGAN from a checkpoint path, ``--seg netpqc``
+    from a weights directory of seeded files at small head widths
+    (``chip_smoke.write_seeded_weights``); against the JAX package's
+    command line, which reads the same checkpoint under the zoo's name and
+    the same segmenter files: the same seglabels, ``iou.npy`` within 1e-2,
+    a strip per unit."""
+    import shutil
+
+    import chip_smoke
+    import rewriting_torch.models.proggan as proggan_mod
+    import rewriting_torch.segment.segmenter as segmenter_mod
+    import rewriting_torch.segment.semantic as semantic_mod
+    from rewriting_torch.models import zoo
+    from rewriting_torch.utils.device import resolve_device
+
+    def on_cpu(device=None):
+        return resolve_device("cpu" if device is None else device)
+    for mod in (proggan_mod, segmenter_mod, semantic_mod):
+        monkeypatch.setattr(mod, "resolve_device", on_cpu)
+    weights = tmp_path / "weights"
+    labeldata = chip_smoke.upp_labeldata({"object": 8, "material": 3,
+                                          "scene": 2, "owners": 3,
+                                          "parts": 5})
+    chip_smoke.write_seeded_weights(str(weights), labeldata,
+                                    which=("upp", "color"),
+                                    colour_segsizes=[32])
+    tm = ProgressiveGenerator(sizes=[8, 8, 8], device="cpu")
+    path = tmp_path / "mine.pth"
+    torch.save(chip_smoke.proggan_checkpoint(tm, tm.init_params(seed=3)),
+               path)
+    shutil.copy(path, weights / zoo.PROGGAN_ZOO["church"])
+    monkeypatch.setenv("REWRITING_TPU_WEIGHTS", str(weights))
+    args = ["--layer", "layer2", "--seg", "netpqc", "--sample_size", "6"]
+    dissect_mod.main(["--outdir", str(tmp_path / "torch"), "--model",
+                      str(path)] + args)
+    monkeypatch.setattr("sys.argv", ["dissect", "--outdir",
+                                     str(tmp_path / "jax")] + args)
+    jax_dissect.main()
+    t = str(tmp_path / "torch" / "mine" / "layer2" / "netpqc" / "6")
+    j = str(tmp_path / "jax" / "church" / "layer2" / "netpqc" / "6")
+    for name in ("seglabels.json",):
+        with open(os.path.join(t, name)) as f, \
+                open(os.path.join(j, name)) as g:
+            assert json.load(f) == json.load(g)
+    iou, jiou = (np.load(os.path.join(d, "iou.npy")) for d in (t, j))
+    assert iou.shape == jiou.shape and iou.shape[0] == 8
+    np.testing.assert_allclose(iou, jiou, atol=1e-2, rtol=0)
+    assert len(os.listdir(os.path.join(t, "imgs"))) >= 8
+    assert os.path.isfile(os.path.join(t, "done.txt"))

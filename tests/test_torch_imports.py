@@ -13,10 +13,15 @@ import torch
 
 import chip_smoke
 from rewriting_torch.dissect import dissect
-from rewriting_torch.metrics import distances, lpips
+from rewriting_torch.metrics import (distances, fid, inception, load_seg,
+                                     lpips, num_smiles, slimnet)
 from rewriting_torch.models import ProgressiveGenerator, zoo
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2
 from rewriting_torch.rewrite import ProgressiveGanRewriter, SeqStyleGanRewriter
+from rewriting_torch.segment import UnifiedParsingSegmenter, load_segmenter
+from rewriting_torch.segment.faceparse import BiSeNet, FaceSegmenter
+from rewriting_torch.segment.semantic import SemanticSegmenter
+from rewriting_torch.segment.upernet import UPerNet
 from rewriting_torch.stats import RunningQuantile
 from rewriting_torch.utils import paramio
 from rewriting_torch.utils.zdataset import z_dataset_for_model
@@ -41,8 +46,8 @@ print(len(names), loaded)
 print(" ".join(names))
 """
 
-# the modules of the sampling slice and of slices 7 and 8, which the walk
-# must reach
+# the modules of the sampling slice and of slices 7, 8 and 9, which the
+# walk must reach
 SLICE2 = ("ops.upconv_blur", "ops.upsample2x", "metrics.sample",
           "metrics.sample_edited", "metrics.load_mask", "utils.imgsave",
           "utils.workerpool", "utils.pidfile", "utils.pbar")
@@ -52,6 +57,10 @@ SLICE7 = ("models.proggan", "rewrite.multi", "core.instrument",
 SLICE8 = ("stats.quantile", "stats.running", "stats.tally", "dissect",
           "utils.upsample", "metrics.lpips", "metrics.distances",
           "metrics.segio", "metrics.load_seg")
+SLICE9 = ("native", "metrics.inception", "metrics.fid", "metrics.get_fid",
+          "metrics.slimnet", "metrics.num_smiles", "segment", "segment.nn",
+          "segment.prroi", "segment.resnet", "segment.upernet",
+          "segment.segmenter", "segment.semantic", "segment.faceparse")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -61,7 +70,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2 + SLICE7 + SLICE8:
+    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9:
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -131,6 +140,30 @@ def test_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dissect(pg, pg_params, "layer2", None, ["-"], str(tmp_path / "d"),
                 **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inception.InceptionV3Features(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fid.FeatureExtractor(allow_random=True, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slimnet.SlimNetClassifier(slimnet.init_random_state_dict(0), **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaceSegmenter(BiSeNet().init_params(0), **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        num_smiles.mouth_heuristic_classifier(BiSeNet().init_params(0),
+                                              **kw)
+    labeldata = {"object": ["-", "a"], "part": ["-", "p"],
+                 "material": ["-", "m"], "scene": ["-"],
+                 "object_part": {"a": ["p"]}}
+    upp = UPerNet({"object": 2, "part": 1, "material": 2, "scene": 1}, [1],
+                  {1: [1]}).init_params(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        UnifiedParsingSegmenter(upp, labeldata, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_segmenter("netp", params=upp, labeldata=labeldata, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SemanticSegmenter(None, ["a", "b"], arch="resnet18dilated", **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_seg.load_seg_model("faces_clean", **kw)
     # the quantile sketch follows its batches unless given a device
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RunningQuantile(device="cuda")
