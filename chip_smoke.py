@@ -82,7 +82,23 @@ set to 0 just before it and read just after:
   CPU, ``predict_single_class``; the smile count with the mouth heuristic
   and with SlimNet; ``python3 -m rewriting_torch.dissect`` of phase 15's
   checkpoint at ``layer4`` with ``--seg netpqc``.  No kernel is on these
-  paths but the blur (K2) of ``model_stats``'s sampling.
+  paths but the blur (K2) of ``model_stats``'s sampling;
+- the editing server over a layer-8 rewriter of the checkpoint file, in a
+  thread, over a real socket: status, previews against the in-process
+  render, the dome2tree edit (bit for bit the same edit made in this
+  thread), the fast and erase solves, four edits as one batch with their
+  previews, commit, revert, save, the error answers; then ``python3 -m
+  rewriting_torch.serve`` in its own process; then the notebook app
+  (``GanRewriteApp``) headless: pick, paste, key, execute, toggle,
+  search, revert;
+- the paper's metric pipeline: ``seg_stats`` with netpqc over the clean
+  and edited PNGs, ``seg_correct_mod``, and ``run_fused`` (sample,
+  segment and FID features in one pass) against the staged chain; the
+  experiment DAG's church chain (sample, edit, segment, correct,
+  distances), each stage a child process; the patch FID sweep at layer 8
+  against phase 5's edit, FID statistics of real images and the
+  generated samples.  K2 runs in every served render and edit, the UI's
+  canvases, the fused pass and the patch renders.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -155,8 +171,12 @@ BATCH_REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
 # the batch, run twice, must repeat bit for bit (the solves run cuDNN's
 # deterministic algorithms); against each edit solved alone it is held
 # within 3x the gap between that single solve under cuDNN's default
-# algorithms and under its deterministic ones, measured in the same call,
-# plus a floor: the final losses (BATCH_LOSS_TOL, absolute) and the share
+# algorithms and under its deterministic ones, measured in the same call
+# (the largest of BATCH_DEFAULT_RUNS default runs: one run's gap is a
+# single draw of the rounding noise, and the share below read 0.011 on
+# one run and 0.111 on another, so one draw can fall far below the noise
+# the batch's own rounding makes), plus a floor: the final losses
+# (BATCH_LOSS_TOL, absolute) and the share
 # of the single solve's change in the window output's L1 to the goal that
 # the batch makes (|1 - share|, BATCH_OUTPUT_FLOOR; a batch that changed
 # nothing reads 0; on seeded weights the change is a rise: the solves end
@@ -170,6 +190,7 @@ BATCH_REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
 # (scripts/probe_solve_determinism.py)
 BATCH_LOSS_TOL = 1e-4
 BATCH_OUTPUT_FLOOR = 0.05
+BATCH_DEFAULT_RUNS = 3
 # phase 18: the erase's units, as the paper's watermark.sh runs it (30
 # and 60; the command line's default, 1, is one unit of the 512, and on
 # seeded weights its goal lies so near the unedited output that the
@@ -1056,40 +1077,46 @@ def check_batched_edits(rw, kblur, workdir: str, steps: int = 2001,
     rows = []
     for i in (0, edits - 1):
         gin, gout, d = goals[i]
-        runs = {}
-        for label, algorithms in (("deterministic", contextlib.nullcontext),
-                                  ("default", default_algorithms)):
+        runs = []
+        for algorithms in ((contextlib.nullcontext,)
+                           + (default_algorithms,) * BATCH_DEFAULT_RUNS):
             rw.revert()
             with algorithms():
                 seq_losses, ms = rw.fast_linear_insert(
                     gin, DataBag(gin, fmap=gout), d, niter=steps,
                     return_timing=True)
-            runs[label] = (rw.target_weight().clone(), seq_losses, ms)
+            runs.append((rw.target_weight().clone(), seq_losses, ms))
         rw.revert()
-        (w_a, l_a, ms_a), (w_b, l_b, ms_b) = (runs["deterministic"],
-                                              runs["default"])
-        wgap = float((w_a - w_b).abs().max())
-        lgap = float(abs(l_a[-1] - l_b[-1]))
+        (w_a, l_a, ms_a), defaults = runs[0], runs[1:]
+        w_b, l_b, ms_b = defaults[0]
+        wgap = max(float((w_a - w).abs().max()) for w, _, _ in defaults)
+        lgaps = [float(abs(l_a[-1] - l[-1])) for _, l, _ in defaults]
+        lgap = max(lgaps)
         wdiff = float((weights[i] - w_a).abs().max())
         wrel = float((weights[i] - w_a).norm() / (w_a - w0).norm())
         ldiff = float(abs(losses[i] - l_a[-1]))
         with torch.no_grad():
-            y0, ya, ya2, yb = (rw._window_fn(w, (gin, rw.params))
-                               for w in (w0, w_a, w_b, weights[i]))
+            y0, ya, yb = (rw._window_fn(w, (gin, rw.params))
+                          for w in (w0, w_a, weights[i]))
+            ydef = [rw._window_fn(w, (gin, rw.params)) for w, _, _ in defaults]
         # the share of the single solve's change in the goal's L1 that a
         # run makes: 1 for the single solve, 0 for no change at all
         goal = [float(torch.mean(torch.abs(gout - y)))
-                for y in (y0, ya, ya2, yb)]
+                for y in (y0, ya, ydef[0], yb)]
         share = (goal[0] - goal[3]) / (goal[0] - goal[1])
-        share_gap = (goal[0] - goal[2]) / (goal[0] - goal[1])
+        shares = [(goal[0] - float(torch.mean(torch.abs(gout - y))))
+                  / (goal[0] - goal[1]) for y in ydef]
+        share_gap = max(shares, key=lambda v: abs(1 - v))
         orel = float((yb - ya).norm() / (ya - y0).norm())
-        ogap = float((ya2 - ya).norm() / (ya - y0).norm())
+        ogap = float((ydef[0] - ya).norm() / (ya - y0).norm())
         delta = weights[i] - w0
         span = float((delta - projected_conv(delta, d)).norm() / delta.norm())
         rows.append({"edit": BATCH_REQUESTS[i], "final_loss_abs": ldiff,
                      "default_vs_deterministic_final_loss_abs": lgap,
+                     "default_runs_final_loss_abs": lgaps,
                      "goal_l1": goal, "goal_share": share,
                      "default_vs_deterministic_goal_share": share_gap,
+                     "default_runs_goal_share": shares,
                      "output_rel": orel,
                      "default_vs_deterministic_output_rel": ogap,
                      "weights_max_abs": wdiff, "weights_rel": wrel,
@@ -1100,13 +1127,16 @@ def check_batched_edits(rw, kblur, workdir: str, steps: int = 2001,
               f"deterministic / default algorithms {ms_a / steps:.4f} / "
               f"{ms_b / steps:.4f} ms a step; final loss {l_a[-1]:.6f} / "
               f"{l_b[-1]:.6f}, the batch's {losses[i]:.6f} ({ldiff:.3e} "
-              f"from the deterministic one; limit 3x the two's {lgap:.3e} + "
+              f"from the deterministic one; limit 3x the largest of the "
+              f"{BATCH_DEFAULT_RUNS} default runs' "
+              f"{np.array2string(np.array(lgaps), precision=3)} + "
               f"{BATCH_LOSS_TOL}); the window's output: L1 to the goal "
               f"unedited / alone / default / batch {goal[0]:.6f} / "
               f"{goal[1]:.6f} / {goal[2]:.6f} / {goal[3]:.6f}, the share "
               f"of the change alone the batch makes {share:.6f}, the "
-              f"default {share_gap:.6f} (limit |1 - share| within 3x the "
-              f"default's + {BATCH_OUTPUT_FLOOR}); |diff| / |change by the "
+              f"default runs' {np.array2string(np.array(shares), precision=6)}"
+              f" (limit |1 - share| within 3x the default runs' largest + "
+              f"{BATCH_OUTPUT_FLOOR}); |diff| / |change by the "
               f"edit| "
               f"(not held: a batch that changed nothing reads 1): batch vs "
               f"alone {orel:.3e}, default vs deterministic {ogap:.3e}; "
@@ -1966,18 +1996,9 @@ def write_seeded_weights(root: str, labeldata: dict,
     return files
 
 
-@contextlib.contextmanager
 def weights_env(path: str):
     """``$REWRITING_TPU_WEIGHTS`` set to `path` within."""
-    old = os.environ.get("REWRITING_TPU_WEIGHTS")
-    os.environ["REWRITING_TPU_WEIGHTS"] = path
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["REWRITING_TPU_WEIGHTS"]
-        else:
-            os.environ["REWRITING_TPU_WEIGHTS"] = old
+    return environment(REWRITING_TPU_WEIGHTS=path)
 
 
 def cli_env(weights: str) -> dict:
@@ -2360,6 +2381,852 @@ def check_quickdissect(checkpoint: str, workdir: str, weights: str,
             "labels": len(labelled), "launches": launches}
 
 
+# -- slice 10: the server, the UI and the paper's metric pipeline ----------
+
+# phase 31: the church chain of the experiment DAG, at PIPELINE_N images
+PIPELINE_STAGES = ("sample_church", "edit_dome2spire", "seg_church_clean",
+                   "seg_dome2spire", "correct_dome2spire", "dist_dome2spire")
+PIPELINE_N = 32
+PATCH_CROPS = (8, 16)   # phase 32: two sqrtm of 2048 x 2048 on the host
+PATCH_N = 32
+
+
+def http(method: str, url: str, body=None, timeout: float = 600):
+    """(status, content type, body bytes) of one request; an HTTP error
+    is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def served(method: str, url: str, body=None):
+    """The answer of a request that must succeed: JSON decoded, a PNG as
+    its bytes; any other status (a 500 not asked for) raises."""
+    code, ctype, data = http(method, url, body)
+    if code != 200:
+        raise AssertionError(f"{method} {url} answered {code}: "
+                             f"{data[:2000]!r}")
+    return json.loads(data) if ctype == "application/json" else data
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def lsb_apart(np, a, b) -> int:
+    return int(np.abs(np.asarray(a, np.int16)
+                      - np.asarray(b, np.int16)).max())
+
+
+def check_server(gw, workdir: str, counters, steps: int = 2001,
+                 side_steps: int = 201, npreview: int = 5) -> dict:
+    """Phase 29, the server: ``serve(gw, port=0)`` in a thread over the
+    layer-8 rewriter `gw`, and over a real socket, in turn: ``/status``;
+    ``/preview`` (`npreview` times, each PNG decoded within 1 LSB of the
+    in-process render); ``/edit`` of dome2tree (rank 1, `steps` steps),
+    whose weight must equal bit for bit the same ``apply_edit`` made in
+    this thread; ``/edit`` by the fast solve and by erase (`side_steps`);
+    ``/edit_batch`` of ``BATCH_REQUESTS`` (`side_steps`), each edit's
+    preview against ``preview_edits``; ``/commit_batch_edit``;
+    ``/revert`` (the original weights exactly); ``/save`` read back through
+    ``paramio``; 404 and 500 as JSON.  A 500 not asked for fails the
+    phase.  Returns the times and the K2 launches of each request."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rewriting_torch.core import leaves
+    from rewriting_torch.rewrite.multi import preview_edits
+    from rewriting_torch.serve import serve
+    from rewriting_torch.utils import paramio, renormalize
+
+    def timed_request(method, url, body=None):
+        before = counters()
+        t1 = time.time()
+        answer = served(method, url, body)
+        wall = time.time() - t1
+        now = counters()
+        return answer, wall, {k: now[k] - before[k] for k in now}
+
+    def preview(query="imgnum=3"):
+        png, wall, launches = timed_request("GET",
+                                            f"{base}/preview?{query}")
+        if png[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"/preview?{query} is not a PNG")
+        return renormalize.decode_png(png), wall, launches
+
+    with open(MASK) as f:
+        request = json.load(f)
+    requests = []
+    for name in BATCH_REQUESTS:
+        with open(os.path.join(MASKS, "church", f"{name}.json")) as f:
+            requests.append(json.load(f))
+    gw.revert()
+    w0 = gw.target_weight().clone()
+    httpd = serve(gw, port=0)
+    service = httpd.service
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {}
+    try:
+        status = served("GET", base + "/status")
+        want = {"model": "SeqStyleGAN2", "window": [gw.firstlayer,
+                                                    gw.lastlayer],
+                "edits_applied": 0, "k_shape": list(gw.k_shape),
+                "zds_size": len(gw.zds)}
+        if status != want:
+            raise AssertionError(f"/status {status}, want {want}")
+
+        walls, launches = [], []
+        for _ in range(npreview):
+            img, wall, n = preview()
+            walls.append(wall)
+            launches.append(n)
+        first = img
+        lsb = lsb_apart(np, img, gw.render_image(3))
+        out["preview_ms"] = sorted(walls)[len(walls) // 2] * 1e3
+        out["preview_launches"] = launches[-1]
+        if lsb > 1 or img.shape != (gw.model.size, gw.model.size, 3):
+            raise AssertionError(f"/preview {img.shape}, {lsb} LSB from "
+                                 "the in-process render")
+
+        answer, wall, n = timed_request(
+            "POST", base + "/edit", {"request": request, "rank": 1,
+                                     "niter": steps})
+        served_w = gw.target_weight().clone()
+        out["edit_s"], out["edit_launches"] = wall, n
+        img, _, _ = preview()
+        edited_lsb = lsb_apart(np, img, gw.render_image(3))
+        with service.lock:      # no request runs meanwhile
+            gw.revert()
+            t1 = time.time()
+            gw.apply_edit(request, rank=1, niter=steps)
+            sync(gw.device)
+            out["main_thread_edit_s"] = time.time() - t1
+            same = torch.equal(gw.target_weight(), served_w)
+        print(f"served /edit dome2tree ({steps} steps): {wall:.3f} s, "
+              f"answer {answer}, K2 launches {n}; the weight equals the "
+              f"same apply_edit in the main thread bit for bit: {same} "
+              f"({out['main_thread_edit_s']:.3f} s there); the edited "
+              f"preview {edited_lsb} LSB from the in-process render")
+        if answer != {"ok": True, "edits_applied": 1} or not same or \
+                edited_lsb > 1 or torch.equal(served_w, w0):
+            raise AssertionError("the served edit differs from the "
+                                 "main thread's or changed nothing")
+
+        for method in ("fast", "erase"):
+            before_w = gw.target_weight().clone()
+            answer, wall, n = timed_request(
+                "POST", base + "/edit", {"request": request,
+                                         "niter": side_steps,
+                                         "method": method})
+            out[f"{method}_s"], out[f"{method}_launches"] = wall, n
+            print(f"served /edit method {method} ({side_steps} steps): "
+                  f"{wall:.3f} s, K2 launches {n}")
+            if not answer["ok"] or torch.equal(gw.target_weight(),
+                                               before_w):
+                raise AssertionError(f"/edit {method} changed nothing")
+
+        answer, wall, n = timed_request(
+            "POST", base + "/edit_batch", {"requests": requests,
+                                           "niter": side_steps})
+        losses = answer["final_losses"]
+        out["batch_s"], out["batch_launches"] = wall, n
+        out["batch_losses"] = losses
+        batch_lsb = []
+        for k in range(len(requests)):
+            img, _, n = preview(f"imgnum=3&batch_index={k}")
+            direct = renormalize.as_image(np.clip(preview_edits(
+                gw, [service._batch_weights[k]], gw.zds.zs[3:4])[0, 0],
+                -1, 1))
+            batch_lsb.append(lsb_apart(np, img, direct))
+        out["batch_preview_launches"] = n
+        print(f"served /edit_batch of {len(requests)} ({side_steps} "
+              f"steps): {wall:.3f} s, final losses "
+              f"{[round(v, 6) for v in losses]}, K2 launches "
+              f"{out['batch_launches']}; batch previews {batch_lsb} LSB "
+              f"from preview_edits, K2 launches a preview {n}")
+        if answer["n"] != len(requests) or not np.isfinite(losses).all() \
+                or max(batch_lsb) > 1:
+            raise AssertionError(f"/edit_batch {answer}, previews "
+                                 f"{batch_lsb} LSB")
+
+        served("POST", base + "/commit_batch_edit", {"index": 2})
+        if not torch.equal(gw.target_weight(), service._batch_weights[2]):
+            raise AssertionError("/commit_batch_edit did not commit edit 2")
+        served("POST", base + "/revert", {})
+        now, pristine = dict(leaves(gw.params)), dict(leaves(
+            gw.original_params))
+        reverted = now.keys() == pristine.keys() and all(
+            torch.equal(now[k], pristine[k]) for k in now)
+        img, _, _ = preview()
+        if not reverted or not torch.equal(gw.target_weight(), w0) or \
+                lsb_apart(np, img, first) > 1:
+            raise AssertionError("/revert did not restore the original "
+                                 "weights and preview")
+        path = os.path.join(workdir, "served_params.npz")
+        answer = served("POST", f"{base}/save?path={path}", {})
+        loaded = dict(leaves(paramio.load_params(path)))
+        mine = dict(leaves(gw.params))
+        if answer != {"ok": True, "path": path} or loaded.keys() != \
+                mine.keys() or not all(torch.equal(loaded[k], mine[k])
+                                       for k in mine):
+            raise AssertionError("/save does not read back as gw.params")
+        errors = {}
+        for method, url, body, code in (("GET", "/nope", None, 404),
+                                        ("POST", "/nope", {}, 404),
+                                        ("POST", "/edit", {}, 500)):
+            got, ctype, data = http(method, base + url, body)
+            errors[f"{method} {url}"] = got
+            if got != code or ctype != "application/json" or \
+                    "error" not in json.loads(data):
+                raise AssertionError(f"{method} {url} answered {got} "
+                                     f"{data[:200]!r}, want {code} JSON")
+        status = served("GET", base + "/status")
+        if status["edits_applied"] != 0:
+            raise AssertionError(f"/status after /revert {status}")
+        out["errors"] = errors
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    print(f"server: preview {out['preview_ms']:.3f} ms (median of "
+          f"{npreview}), K2 launches a preview "
+          f"{out['preview_launches']['k2']}; /edit {out['edit_s']:.3f} s; "
+          f"fast {out['fast_s']:.3f} s, erase {out['erase_s']:.3f} s, "
+          f"batch {out['batch_s']:.3f} s; commit, revert, save and the "
+          f"errors {out['errors']} as asked")
+    return out
+
+
+def check_serve_command_line(gw, workdir: str, weights: str,
+                             timeout: float = 300) -> dict:
+    """Phase 29, the command line: ``python3 -m rewriting_torch.serve
+    --dataset church --layer 8 --port <free port>`` in a child process on
+    the checkpoint in `weights`; once it prints "editing server on",
+    ``/status`` and ``/preview?imgnum=3`` (within 1 LSB of `gw`'s render:
+    the same checkpoint, truncation and z), then it is stopped."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    from rewriting_torch.utils.renormalize import decode_png
+
+    gw.revert()
+    port = free_port()
+    log = open(os.path.join(workdir, "serve_stderr.txt"), "w")
+    t1 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rewriting_torch.serve", "--dataset",
+         "church", "--layer", "8", "--port", str(port)], cwd=workdir,
+        env=cli_env(weights), stdout=subprocess.PIPE, stderr=log, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in
+                                              proc.stdout], daemon=True)
+    reader.start()
+    try:
+        printed = []
+        while not any("editing server on" in p for p in printed):
+            left = t1 + timeout - time.time()
+            if proc.poll() is not None or left <= 0:
+                log.flush()
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"the serve command line exited "
+                                     f"{proc.returncode} or timed out; "
+                                     f"printed {printed}:\n{tail}")
+            try:
+                printed.append(lines.get(timeout=min(left, 5.0)))
+            except queue.Empty:
+                pass
+        ready_s = time.time() - t1
+        base = f"http://127.0.0.1:{port}"
+        status = served("GET", base + "/status")
+        t2 = time.time()
+        img = decode_png(served("GET", base + "/preview?imgnum=3"))
+        preview_s = time.time() - t2
+        lsb = lsb_apart(np, img, gw.render_image(3))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    print(f"python3 -m rewriting_torch.serve --dataset church --layer 8: "
+          f"ready in {ready_s:.3f} s ({printed[-1].strip()!r}); /status "
+          f"{status}; /preview in {preview_s * 1e3:.1f} ms, {lsb} LSB from "
+          f"the in-process render; stopped (exit {proc.returncode})")
+    if status["zds_size"] != 1000 or status["edits_applied"] != 0 or \
+            lsb > 1:
+        raise AssertionError(f"serve command line: {status}, {lsb} LSB")
+    return {"ready_s": ready_s, "preview_s": preview_s, "lsb": lsb}
+
+
+def check_ui(gw, counters, steps: int = 201) -> dict:
+    """Phase 29, the UI headless: ``GanRewriteApp(gw, size=256,
+    num_canvases=4)``; dome2tree's object, paste and key painted on the
+    canvases of its images and picked; the request equal to the file's;
+    ``exec_request`` (`steps` steps); the canvases against the rewriter's
+    renders, the original toggled and back, Search, revert.  Canvases are
+    decoded PNGs, held within 1 LSB of ``render_image_batch``."""
+    import base64
+    import re
+
+    import numpy as np
+
+    from rewriting_torch.ui import GanRewriteApp
+    from rewriting_torch.utils.renormalize import decode_png
+
+    def shown(app):
+        return np.stack([decode_png(base64.b64decode(re.sub(
+            "^data:image/.+;base64,", "", c.image))) for c in app.canvases])
+
+    def renders(app):
+        return np.stack(gw.render_image_batch(app.canvas_imgnums))
+
+    def launches(before):
+        now = counters()
+        return {k: now[k] - before[k] for k in now}
+
+    with open(MASK) as f:
+        request = json.load(f)
+    (o_img, o_mask), (p_img, p_mask) = request["object"], request["paste"]
+    k_img, k_mask = request["key"][0]
+    gw.revert()
+    base = counters()
+    t1 = time.time()
+    app = GanRewriteApp(gw, size=256, num_canvases=4)
+    build_s = time.time() - t1
+    build_launches = launches(base)
+    if lsb_apart(np, shown(app), renders(app)) > 1:
+        raise AssertionError("the canvases differ from the renders")
+    imgs = [o_img, p_img] + [i for i in range(4) if i not in (o_img, p_img)]
+    app.show_images(imgs[:4])
+    pristine = shown(app)
+    app.canvases[0].set("mask", o_mask, _from_view=True)
+    app.pick_object()
+    app.canvases[1].set("mask", p_mask, _from_view=True)
+    base = counters()
+    app.pick_paste()
+    paste_launches = launches(base)
+    app.canvases[app.canvas_imgnums.index(k_img)].set("mask", k_mask,
+                                                      _from_view=True)
+    app.add_key()
+    want = {"paste": [p_img, p_mask], "object": [o_img, o_mask],
+            "key": [[k_img, k_mask]]}
+    if app.current_request() != want:
+        raise AssertionError(f"the app's request is not the file's")
+    app.niter_box.value = str(steps)
+    base = counters()
+    t1 = time.time()
+    app.exec_request()
+    sync(gw.device)
+    exec_s = time.time() - t1
+    exec_launches = launches(base)
+    edited = shown(app)
+    if app.status != "edited" or lsb_apart(np, edited, renders(app)) > 1 \
+            or lsb_apart(np, edited, pristine) <= 1:
+        raise AssertionError("the edited canvases are not the edited "
+                             "model's renders")
+    app.toggle_original()
+    original = shown(app)
+    app.toggle_original()
+    if lsb_apart(np, original, pristine) > 1 or lsb_apart(
+            np, shown(app), edited) > 1:
+        raise AssertionError("Toggle Original does not show the original "
+                             "and back")
+    base = counters()
+    t1 = time.time()
+    ranking = app.search()
+    search_s = time.time() - t1
+    search_launches = launches(base)
+    if app.canvas_imgnums != [int(i) for i in np.asarray(ranking)[:4]] or \
+            app.query_key is None:
+        raise AssertionError(f"search showed {app.canvas_imgnums}, ranked "
+                             f"{ranking}")
+    app.revert()
+    if lsb_apart(np, shown(app), renders(app)) > 1 or app.original_shown:
+        raise AssertionError("revert did not repaint the original model")
+    print(f"UI: GanRewriteApp at {app.size} px, 4 canvases, built in "
+          f"{build_s:.3f} s (K2 launches {build_launches['k2']}); the paste "
+          f"composite K2 {paste_launches['k2']}; exec_request ({steps} "
+          f"steps) {exec_s:.3f} s, K2 {exec_launches['k2']} forward, "
+          f"{exec_launches['k2_backward']} backward; search {search_s:.3f} s "
+          f"(K2 {search_launches['k2']}), images {app.canvas_imgnums}; "
+          f"canvases within 1 LSB of the renders throughout")
+    return {"build_s": build_s, "exec_s": exec_s, "search_s": search_s,
+            "canvas_launches": build_launches,
+            "paste_launches": paste_launches, "exec_launches":
+            exec_launches, "search_launches": search_launches}
+
+
+def netpqc_unsure(seg, x):
+    """(B, 6, H, W) bool: where ``load_segmenter("netpqc")``'s labels of
+    uint8 images `x` may differ between two runs on the card: the top-two
+    margin of a head within SEG_TOL, and a quad channel wherever an object
+    label of its image is unsure."""
+    import torch
+
+    upp, col = seg.segmenters
+    pred, parts = upp.raw_seg_prediction(x)
+    obj = top2_margin(pred["object"]) <= SEG_TOL
+    mat = top2_margin(pred["material"]) <= SEG_TOL
+    part = obj | torch.stack([top2_margin(p) <= SEG_TOL
+                              for p in parts.values()]).any(0)
+    quad = obj.flatten(1).any(1)[:, None, None].expand_as(obj)
+    colour = top2_margin(col.raw_seg_prediction(x)) <= SEG_TOL
+    return torch.stack([obj, mat, part, quad, quad, colour], 1)
+
+
+def label_differences(seg, paths, dir_a: str, dir_b: str,
+                      batch_size: int = 16, device: str = "cuda") -> dict:
+    """Labels of two label directories compared image by image: the count
+    that differ, and of those the count where ``netpqc_unsure`` is false
+    on the images of `paths` (which must be 0)."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch import native
+
+    differ = sure_differ = 0
+    for lo in range(0, len(paths), batch_size):
+        idx = range(lo, min(lo + batch_size, len(paths)))
+        a = np.stack([np.load(os.path.join(dir_a, f"{i}.npz"))["seg"]
+                      for i in idx])
+        b = np.stack([np.load(os.path.join(dir_b, f"{i}.npz"))["seg"]
+                      for i in idx])
+        if np.array_equal(a, b):
+            continue
+        x = torch.as_tensor(next(native.read_batches(
+            paths[lo:lo + batch_size], batch_size))).to(device)
+        unsure = netpqc_unsure(seg, x).cpu().numpy()
+        differ += int((a != b).sum())
+        sure_differ += int(((a != b) & ~unsure).sum())
+    return {"differ": differ, "sure_differ": sure_differ}
+
+
+def check_metric_pipelines(model, params, clean_dir: str, edited_dir: str,
+                           workdir: str, counters, n: int = 64,
+                           batch_size: int = 16, device: str = "cuda"
+                           ) -> dict:
+    """Phase 30: ``seg_stats.process`` with netpqc (``load_seg_model``,
+    from ``$REWRITING_TPU_WEIGHTS``) over `n` clean and n/2 edited PNGs;
+    ``seg_correct_mod.compute_dl`` with dome2spire's labels and with the
+    two most frequent labels, each equal to a direct count over the files;
+    then ``run_fused`` (netpqc, the seeded ``FeatureExtractor``) against the
+    staged chain at the same batch size (``sample_clean``,
+    ``seg_stats.process``, ``compute_feature_stats`` over the PNGs), both
+    with cuDNN's deterministic algorithms: PNGs byte-identical, labels
+    equal wherever the heads' margin exceeds SEG_TOL, mu and sigma within
+    1e-6 of their largest entry; then the fused pass twice with the
+    default algorithms, how far their PNGs lie apart printed."""
+    import numpy as np
+
+    from rewriting_torch.metrics import fid, seg_correct_mod, seg_stats
+    from rewriting_torch.metrics.fused_pipeline import run_fused
+    from rewriting_torch.metrics.load_seg import (
+        load_seg_info_from_exp_name, load_seg_model)
+    from rewriting_torch.metrics.sample import sample_clean
+    from rewriting_torch.native import read_image_rgb
+    from rewriting_torch.ops import precision
+
+    def launches_since(before):
+        now = counters()
+        return {k: now[k] - before[k] for k in now}
+
+    root = os.path.join(workdir, "pipeline30")
+    t1 = time.time()
+    seg = load_seg_model("church_clean", device=device)
+    fe = fid.FeatureExtractor(batch_size=batch_size, device=device)
+    load_s = time.time() - t1
+    seg_dirs = {}
+    seg_s = {}
+    for name, src, count in (("church_clean", clean_dir, n),
+                             ("dome2spire", edited_dir, n // 2)):
+        seg_dirs[name] = os.path.join(root, "seg", name)
+        sync(device)
+        t1 = time.time()
+        seg_stats.process(seg, src, seg_dirs[name], n=count,
+                          batch_size=batch_size)
+        seg_s[name] = time.time() - t1
+        files = sorted(f for f in os.listdir(seg_dirs[name])
+                       if f.endswith(".npz"))
+        first = np.load(os.path.join(seg_dirs[name], "0.npz"))["seg"]
+        if len(files) != count or first.dtype != np.int64 or \
+                first.shape != (6, model.size, model.size):
+            raise AssertionError(f"seg_stats wrote {len(files)} files, "
+                                 f"{first.dtype} {first.shape}")
+
+    def direct_count(tgt, tgtc, src, srcc):
+        total = count = 0
+        for i in range(n // 2):
+            b = np.load(os.path.join(seg_dirs["church_clean"],
+                                     f"{i}.npz"))["seg"][srcc]
+            a = np.load(os.path.join(seg_dirs["dome2spire"],
+                                     f"{i}.npz"))["seg"][tgtc]
+            where = np.isin(b, src)
+            total += int(np.isin(a[where], tgt).sum())
+            count += int(where.sum())
+        return total, count
+
+    _, srcc, tgtc, src, tgt = load_seg_info_from_exp_name("dome2spire")
+    clean0 = np.stack([np.load(os.path.join(seg_dirs["church_clean"],
+                                            f"{i}.npz"))["seg"]
+                       for i in range(n // 2)])
+    common = [int(np.bincount(clean0[:, c].ravel()).argmax())
+              for c in range(clean0.shape[1])]
+    correct = {}
+    for label, args in (("dome2spire", (tgt, tgtc, src, srcc)),
+                        ("most frequent", ([common[0]], 0, [common[2]], 2))):
+        got = seg_correct_mod.compute_dl(seg_dirs["church_clean"],
+                                         seg_dirs["dome2spire"],
+                                         range(n // 2), *args)
+        want = direct_count(*args)
+        correct[label] = {"labels": [list(args[0]), args[1],
+                                     list(args[2]), args[3]],
+                          "total": got[0], "count": got[1]}
+        if got != want:
+            raise AssertionError(f"compute_dl {label} {got}, direct {want}")
+    if correct["most frequent"]["count"] == 0:
+        raise AssertionError("compute_dl counted no source pixel")
+    print(f"seg_stats.process with netpqc: {n} clean PNGs "
+          f"{seg_s['church_clean']:.3f} s ({n / seg_s['church_clean']:.2f} "
+          f"images/s), {n // 2} edited {seg_s['dome2spire']:.3f} s (segmenter "
+          f"and Inception loaded in {load_s:.3f} s); compute_dl equal to a "
+          f"direct count: {correct}")
+
+    # the staged chain at the fused pass's batch size, then the fused pass,
+    # both with cuDNN's deterministic algorithms: its default ones vary run
+    # to run on the H100, forward convolutions too (PERF.md §6), so two
+    # passes over the same z agree bit for bit only within that scope
+    staged = os.path.join(root, "staged")
+    fused = os.path.join(root, "fused")
+    with precision.deterministic():
+        base = counters()
+        sync(device)
+        t1 = time.time()
+        sample_clean(model, params, staged, n=n, batch_size=batch_size)
+        seg_stats.process(seg, staged, os.path.join(staged, "seg"), n=n,
+                          batch_size=batch_size)
+        mu_s, sigma_s = fid.compute_feature_stats(
+            fid._image_dir_batches(staged, batch_size, as_uint8=True), fe)
+        staged_s = time.time() - t1
+        staged_launches = launches_since(base)
+        base = counters()
+        sync(device)
+        t1 = time.time()
+        mu_f, sigma_f = run_fused(model, params, fused, segmodel=seg,
+                                  feature_fn=fe, n=n, batch_size=batch_size,
+                                  stats_path=os.path.join(fused, "fid.npz"))
+        sync(device)
+        fused_s = time.time() - t1
+        fused_launches = launches_since(base)
+    # the fused pass twice with the default algorithms: how far their run
+    # to run variation takes the PNGs (printed, not held)
+    loose = [os.path.join(root, f"fused_default_{k}") for k in (0, 1)]
+    for out in loose:
+        sync(device)
+        t1 = time.time()
+        run_fused(model, params, out, segmodel=seg, feature_fn=fe, n=n,
+                  batch_size=batch_size)
+        sync(device)
+        default_s = time.time() - t1
+    loose_lsb = [lsb_apart(np, *(read_image_rgb(os.path.join(out,
+                                                             f"{i}.png"))
+                                 for out in loose))
+                 for i in range(n)]
+    differ_png = [i for i in range(n)
+                  if file_bytes(os.path.join(staged, f"{i}.png"))
+                  != file_bytes(os.path.join(fused, f"{i}.png"))]
+    labels = label_differences(seg, png_paths(staged)[:n],
+                               os.path.join(staged, "seg"),
+                               os.path.join(fused, "seg"), batch_size,
+                               device)
+    mu_err = float(np.abs(mu_f - mu_s).max() / np.abs(mu_s).max())
+    sigma_err = float(np.abs(sigma_f - sigma_s).max()
+                      / np.abs(sigma_s).max())
+    print(f"run_fused {n} images at batch {batch_size} (netpqc, seeded "
+          f"Inception; cuDNN's deterministic algorithms): {fused_s:.3f} s = "
+          f"{n / fused_s:.2f} images/s, against the staged chain "
+          f"{staged_s:.3f} s = {n / staged_s:.2f} images/s "
+          f"({staged_s / fused_s:.2f}x); PNGs differing {differ_png}; labels "
+          f"{labels}; mu {mu_err:.3e}, sigma {sigma_err:.3e} of their "
+          f"largest (limit 1e-6); K2 launches fused {fused_launches['k2']}, "
+          f"staged {staged_launches['k2']}; with the default algorithms "
+          f"{default_s:.3f} s = {n / default_s:.2f} images/s, and two such "
+          f"passes differ in {sum(v > 0 for v in loose_lsb)} images, by at "
+          f"most {max(loose_lsb)} LSB")
+    if differ_png or labels["sure_differ"] or not mu_err <= 1e-6 or \
+            not sigma_err <= 1e-6:
+        raise AssertionError(f"fused vs staged: PNGs {differ_png}, labels "
+                             f"{labels}, mu {mu_err}, sigma {sigma_err}")
+    if fused_launches["k2"] <= 0:
+        raise AssertionError("the fused pass launched no K2")
+    return {"load_s": load_s, "seg_s": seg_s, "correct": correct,
+            "staged_s": staged_s, "fused_s": fused_s,
+            "fused_default_s": default_s,
+            "fused_default_lsb": max(loose_lsb),
+            "fused_default_images_off": sum(v > 0 for v in loose_lsb),
+            "fused_images_per_s": n / fused_s,
+            "staged_images_per_s": n / staged_s, "labels": labels,
+            "mu_err": mu_err, "sigma_err": sigma_err,
+            "fused_launches": fused_launches,
+            "staged_launches": staged_launches, "staged_dir": staged}
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with `values` set, and the working directory `cwd` if
+    given, within."""
+    cwd = values.pop("cwd", None)
+    old = {k: os.environ.get(k) for k in values}
+    here = os.getcwd()
+    os.environ.update(values)
+    if cwd:
+        os.chdir(cwd)
+    try:
+        yield
+    finally:
+        os.chdir(here)
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def check_experiments(workdir: str, weights: str, n: int = PIPELINE_N
+                      ) -> dict:
+    """Phase 31: ``experiments.run_pipeline`` with its default runner (each
+    stage a child process of this interpreter) over the church chain of
+    ``STAGES`` (``PIPELINE_STAGES``) with `n` images and a results directory
+    (``sized_stages``), the checkpoint and seeded segmenters in `weights`;
+    every stage must be done; then once more, which runs nothing.  The
+    ratio the correct stage prints is recomputed from its files."""
+    from rewriting_torch.metrics import experiments, seg_correct_mod
+    from rewriting_torch.metrics.load_seg import load_seg_info_from_exp_name
+
+    root = os.path.join(workdir, "experiments")
+    results = os.path.join(root, "results")
+    os.makedirs(root)
+    stages = sized_stages([s for s in experiments.STAGES
+                           if s[0] in PIPELINE_STAGES], n, results)
+    names = {cmd: name for name, cmd, _ in stages}
+    walls = {}
+
+    def runner(cmd):
+        """The default runner, timed."""
+        t1 = time.time()
+        try:
+            return experiments.run_command(cmd)
+        finally:
+            walls[names[cmd]] = time.time() - t1
+
+    sys.stdout.flush()
+    t1 = time.time()
+    with environment(REWRITING_TPU_WEIGHTS=weights,
+                     REWRITING_TPU_MASKS=MASKS,
+                     PYTHONPATH=os.pathsep.join(
+                         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]), cwd=root):
+        status = experiments.run_pipeline(os.path.join(root, "state"),
+                                          stages=stages, runner=runner)
+        again = experiments.run_pipeline(os.path.join(root, "state"),
+                                          stages=stages, runner=runner)
+    wall = time.time() - t1
+    _, srcc, tgtc, src, tgt = load_seg_info_from_exp_name("dome2spire")
+    total, count = seg_correct_mod.compute_dl(
+        os.path.join(results, "seg", "church_clean"),
+        os.path.join(results, "seg", "dome2spire"), range(n), tgt, tgtc,
+        src, srcc)
+    print(f"experiments.run_pipeline, church chain at {n} images: "
+          f"{wall:.3f} s; stages {status}; each stage's wall "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; dome2spire ratio {total}/{count}; a second run ran "
+          f"{again}")
+    if set(status) != set(PIPELINE_STAGES) or \
+            any(v != "done" for v in status.values()) or again:
+        raise AssertionError(f"run_pipeline {status}, then {again}")
+    return {"wall_s": wall, "status": status, "stage_s": walls,
+            "ratio": [total, count]}
+
+
+def check_patch_fid_and_samples(model, params, edited_weight, clean_dir: str,
+                                staged_dir: str, counters,
+                                crops=PATCH_CROPS, n: int = PATCH_N,
+                                batch_size: int = 16, device: str = "cuda"
+                                ) -> dict:
+    """Phase 32: ``patch_fid_sweep`` of a clean layer-8 rewriter against
+    one holding `edited_weight` (phase 5's edit), crops `crops`, n images,
+    the seeded Inception; ``samples.gt_stats`` and
+    ``get_cropped_gt_samples`` with `clean_dir`'s PNGs as the real images
+    (gt_stats within 1e-5 of the largest entry of
+    ``compute_feature_stats`` of the same images); ``get_fake_samples``
+    quantized equal to ``sample_clean``'s PNGs in `staged_dir` (batch
+    `batch_size`, K1's gate off and cuDNN's deterministic algorithms in
+    both)."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.metrics import fid, patch_fid, samples
+    from rewriting_torch.metrics.sample import quantize_uint8
+    from rewriting_torch.native import read_image_rgb
+    from rewriting_torch.ops import precision
+    from rewriting_torch.rewrite import SeqStyleGanRewriter
+    from rewriting_torch.utils.zdataset import z_dataset_for_model
+
+    fe = fid.FeatureExtractor(batch_size=batch_size, device=device)
+    zds = z_dataset_for_model(model, n)
+    clean = SeqStyleGanRewriter(model, params, zds, 8, device=device)
+    edited = SeqStyleGanRewriter(model, params, zds, 8, device=device)
+    edited.set_target_weight(edited_weight)
+    base = counters()
+    parts = {}
+    t1 = time.time()
+    with timed_methods(parts, device, (patch_fid, "sample_patches"),
+                       (fid, "calculate_frechet_distance")):
+        fids = patch_fid.patch_fid_sweep(clean, edited, list(crops), n=n,
+                                         feature_fn=fe)
+    sweep_s = time.time() - t1
+    now = counters()
+    sweep_launches = {k: now[k] - base[k] for k in now}
+    if not all(np.isfinite(v) and v > 0 for v in fids.values()):
+        raise AssertionError(f"patch FIDs {fids}")
+
+    t1 = time.time()
+    mu, sigma = samples.gt_stats(clean_dir, model.size, 64,
+                                 batch_size=batch_size, feature_fn=fe)
+    gt_s = time.time() - t1
+    mu_d, sigma_d = fid.compute_feature_stats(
+        fid._image_dir_batches(clean_dir, batch_size), fe)
+    gt_err = max(float(np.abs(mu - mu_d).max() / np.abs(mu_d).max()),
+                 float(np.abs(sigma - sigma_d).max()
+                       / np.abs(sigma_d).max()))
+    crops_gt = samples.get_cropped_gt_samples(clean_dir, model.size, 16,
+                                              crop_sizes=crops)
+    if [c.shape for c in crops_gt] != [(16, s, s, 3) for s in crops] or \
+            not all(np.abs(c).max() <= 1.0 for c in crops_gt):
+        raise AssertionError(f"gt crops {[c.shape for c in crops_gt]}")
+    t1 = time.time()
+    with precision.deterministic():     # as phase 30's staged PNGs were
+        fake = samples.get_fake_samples(model, params, n,
+                                        batch_size=batch_size)
+    fake_s = time.time() - t1
+    fake_u8 = quantize_uint8(torch.from_numpy(fake)).numpy()
+    differ = [i for i in range(n) if not np.array_equal(
+        fake_u8[i], read_image_rgb(os.path.join(staged_dir, f"{i}.png")))]
+    print(f"patch_fid_sweep layer 8, crops {list(crops)}, {n} images: FIDs "
+          f"{fids} in {sweep_s:.3f} s (the patches "
+          f"{parts['sample_patches']:.3f} s, the Fréchet distances "
+          f"{parts['calculate_frechet_distance']:.3f} s), launches "
+          f"{sweep_launches}; gt_stats of 64 PNGs {gt_s:.3f} s, "
+          f"{gt_err:.3e} of the largest from compute_feature_stats (limit "
+          f"1e-5); get_fake_samples {n} in {fake_s:.3f} s, differing from "
+          f"sample_clean's PNGs: {differ}")
+    if gt_err > 1e-5 or differ:
+        raise AssertionError(f"gt_stats {gt_err}, fake samples {differ}")
+    if sweep_launches["k2"] <= 0:
+        raise AssertionError("the patch FID sweep launched no K2")
+    return {"fids": {str(k): v for k, v in fids.items()},
+            "sweep_s": sweep_s, "parts_s": parts,
+            "sweep_launches": sweep_launches, "gt_stats_s": gt_s,
+            "gt_err": gt_err, "fake_s": fake_s}
+
+
+def run_slice10(model, params, edited_weight, clean_dir: str,
+                edited_dir: str, workdir: str, weights: str, counts,
+                which=("29", "30", "31", "32"), device: str = "cuda"):
+    """Phases 29-32 inside ``weights_env(weights)`` (the seeded slice-9
+    weights with ``stylegan2_church.pt`` beside them): each phase's
+    numbers printed as a JSON line and its seconds; returns ({phase name:
+    numbers}, {phase name: its launches by `counts()`}).  Phase 32 needs
+    phase 30's staged PNGs, so it runs 30 too."""
+    from rewriting_torch.models.zoo import load_seq_stylegan
+    from rewriting_torch.rewrite import SeqStyleGanRewriter
+    from rewriting_torch.utils.zdataset import z_dataset_for_model
+
+    results, launches = {}, {}
+
+    def since(base):
+        now = counts()
+        return {k: now[k] - base[k] for k in now}
+
+    def run(label, name, fn):
+        t0 = time.time()
+        base = counts()
+        results[name] = fn()
+        launches[name] = since(base)
+        print(json.dumps({name: results[name]}))
+        phase(label, t0)
+
+    def server_and_ui():
+        t1 = time.time()
+        smodel, sparams = load_seq_stylegan("church", truncation=0.5,
+                                            device=device)
+        gw = SeqStyleGanRewriter(smodel, sparams,
+                                 z_dataset_for_model(smodel, 1000), 8,
+                                 device=device)
+        sync(device)
+        print(f"the server's rewriter: checkpoint and layer-8 statistics "
+              f"over 1000 z in {time.time() - t1:.3f} s")
+        out = check_server(gw, workdir, counts)
+        out["cli"] = check_serve_command_line(gw, workdir, weights)
+        out["ui"] = check_ui(gw, counts)
+        return out
+
+    with weights_env(weights):
+        if "29" in which:
+            run("29 server and UI", "server", server_and_ui)
+        if "30" in which or "32" in which:
+            run("30 staged and fused metrics", "pipelines",
+                lambda: check_metric_pipelines(model, params, clean_dir,
+                                               edited_dir, workdir, counts,
+                                               device=device))
+        if "31" in which:
+            run("31 experiment DAG", "experiments",
+                lambda: check_experiments(workdir, weights))
+        if "32" in which:
+            run("32 patch FID and samples", "patch_fid",
+                lambda: check_patch_fid_and_samples(
+                    model, params, edited_weight, clean_dir,
+                    results["pipelines"]["staged_dir"], counts,
+                    device=device))
+    return results, launches
+
+
+def sized_stages(stages, n: int, results: str):
+    """The experiment DAG's stages with `n` images and a results
+    directory: ``--num`` for the two metrics that count images so,
+    ``--n`` for the rest."""
+    out = []
+    for name, cmd, deps in stages:
+        count = "--num" if any(m in cmd for m in ("seg_correct_mod",
+                                                  "distances")) else "--n"
+        out.append((name, f"{cmd} {count} {n} --results {results}", deps))
+    return out
+
+
 def run_edit_loop(model, params, niter: int, layernum: int = 8,
                   nrender: int = 8) -> dict:
     """The paper's edit loop through the port's entry points: statistics
@@ -2367,7 +3234,8 @@ def run_edit_loop(model, params, niter: int, layernum: int = 8,
     timed by the solve itself), `nrender` edited renders, revert, renders
     again.  Checks the loss fell, every step reached the callback, the
     weight change lies in span(D) and every output is finite.  Returns
-    (the numbers, the reverted rewriter)."""
+    (the numbers and, under "edited_weight", the edited weight; the
+    reverted rewriter)."""
     import torch
 
     from rewriting_torch.rewrite import SeqStyleGanRewriter
@@ -2435,7 +3303,7 @@ def run_edit_loop(model, params, niter: int, layernum: int = 8,
     return {"layer": layernum, "stats_s": stats_s, "solve_s": solve_s,
             "solve_ms": solve_ms, "steps": niter, "render_s": render_s,
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-            "span_rel": span_rel}, rw
+            "span_rel": span_rel, "edited_weight": w1}, rw
 
 
 def check_sampling(model, params, outdir: str, n: int, batch_size: int,
@@ -2634,6 +3502,7 @@ def main() -> int:
     kblur.launches = kblur.general_launches = 0
     kup2.launches = kup2.general_launches = 0
     loop, rw8 = run_edit_loop(model, params, niter=2001)
+    w8_edit = loop.pop("edited_weight")     # phase 32's edited rewriter
     k3_on_models = [kup2.launches, kup2.general_launches]
     kernels["blur2d"]["launches"] = kblur.launches
     kernels["blur2d"]["general_launches"] = kblur.general_launches
@@ -2953,6 +3822,7 @@ def main() -> int:
     kblur.launches = kblur.backward_launches = kblur.general_launches = 0
     loop7, rw7 = run_edit_loop(model, params, niter=201, layernum=7,
                                nrender=4)
+    loop7.pop("edited_weight")
     kernels["blur2d"]["backward_launches"] = kblur.backward_launches
     kernels["blur2d"]["general_launches"] += kblur.general_launches
     print(json.dumps({"edit_layer7": loop7}))
@@ -3202,6 +4072,33 @@ def main() -> int:
             name: n["k1"] for name, n in k13.items()}
         kernels["upsample2x"]["slice8_launches"] = {
             name: n["k3"] + n["k3_general"] for name, n in k13.items()}
+
+        # 29-32: slice 10's paths, on phase 12's checkpoint beside the
+        # seeded slice-9 weights; K1's gate off (the default)
+        os.symlink(os.path.join(work.name, "weights", "stylegan2_church.pt"),
+                   os.path.join(weights9, "stylegan2_church.pt"))
+        results, slice10 = run_slice10(
+            model, params, w8_edit, clean_dir,
+            os.path.join(keep.name, "edited"), work.name, weights9, counts)
+        server, pipes, patches = (results["server"], results["pipelines"],
+                                  results["patch_fid"])
+        print(f"launches on phases 29-32 (in this process): {slice10}")
+        stray = {name: {k: v for k, v in n.items() if v and k not in
+                        ("k2", "k2_backward")}
+                 for name, n in slice10.items()}
+        if any(stray.values()):
+            raise AssertionError(f"phases 29-32 launched {stray}")
+        kernels["blur2d"]["slice10_launches"] = {
+            "preview": server["preview_launches"]["k2"],
+            "served_edit": [server["edit_launches"]["k2"],
+                            server["edit_launches"]["k2_backward"]],
+            "ui_canvases": server["ui"]["canvas_launches"]["k2"],
+            "fused_pass": pipes["fused_launches"]["k2"],
+            "patch_fid": patches["sweep_launches"]["k2"],
+            **{name: n["k2"] for name, n in slice10.items()}}
+        for name, key in (("upconv_blur", "k1"), ("upsample2x", "k3")):
+            kernels[name]["slice10_launches"] = {
+                phase_name: n[key] for phase_name, n in slice10.items()}
     finally:
         work.cleanup()
         keep.cleanup()

@@ -20,9 +20,10 @@ import numpy as np
 from ..utils.renormalize import decode_png
 
 
-def read_image_rgb(path: str) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB array of a PNG file: alpha dropped, grey
-    copied to each channel (PIL's ``convert("RGB")``)."""
+def read_image(path: str) -> np.ndarray:
+    """The uint8 pixels of a PNG file in its own mode, as ``numpy.asarray``
+    of a PIL image gives them: (H, W) greyscale, (H, W, 2|3|4)
+    otherwise."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -30,6 +31,15 @@ def read_image_rgb(path: str) -> np.ndarray:
     except ValueError as e:
         raise ValueError(f"cannot read {path}: {e} (the port reads 8-bit "
                          "PNG files only)") from e
+    return img[:, :, 0] if img.shape[2] == 1 else img
+
+
+def read_image_rgb(path: str) -> np.ndarray:
+    """The (H, W, 3) uint8 RGB array of a PNG file: alpha dropped, grey
+    copied to each channel (PIL's ``convert("RGB")``)."""
+    img = read_image(path)
+    if img.ndim == 2:
+        img = img[:, :, None]
     if img.shape[2] in (1, 2):       # grey, grey + alpha
         return np.repeat(img[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])

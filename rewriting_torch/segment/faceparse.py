@@ -161,8 +161,16 @@ class FaceSegmenter(BaseSegmenter):
         with torch.no_grad():
             return self.net(self.params, x)
 
-    def segment_batch(self, images, downsample: int = 1):
-        """(B, 1, H/d, W/d) int64 labels on the device."""
+    def segment_batch_device(self, images, downsample: int = 1):
+        """(B, 1, H/d, W/d) uint8 labels on the device of (B, H, W, 3)
+        images, uint8 or in [-1, 1]: the 19 classes fit a byte, so the
+        drivers copy an eighth of the int64 labels' bytes to the host
+        (``metrics/seg_stats.py``, ``metrics/fused_pipeline.py``)."""
         h, w = as_images(images).shape[1:3]
         labels = torch.argmax(self.scores(images), dim=1)[:, None]
-        return resize_nearest(labels, (h // downsample, w // downsample))
+        return resize_nearest(labels.to(torch.uint8),
+                              (h // downsample, w // downsample))
+
+    def segment_batch(self, images, downsample: int = 1):
+        """(B, 1, H/d, W/d) int64 labels on the device."""
+        return self.segment_batch_device(images, downsample).long()

@@ -84,6 +84,9 @@ class MergedSegmenter(BaseSegmenter):
 
     def __init__(self, component_segmenters: Sequence[BaseSegmenter]):
         self.segmenters = list(component_segmenters)
+        # uint8 images go to segment_batch when every component takes them
+        self.accepts_uint8 = all(getattr(s, "accepts_uint8", False)
+                                 for s in self.segmenters)
         self.labels = []
         self.cats = []
         self.offsets = []
@@ -207,6 +210,11 @@ class UnifiedParsingSegmenter(BaseSegmenter):
                             + (len(labeldata["material"]) - 1)
                             + len(partnames))
         self.num_object_classes = len(labeldata["object"]) - 1
+
+    # segment_batch takes uint8 images and normalizes them on the device:
+    # the drivers hand it their bytes (metrics/seg_stats.py).  Its 1847
+    # labels do not fit a byte, so it has no uint8 segment_batch_device.
+    accepts_uint8 = True
 
     def get_label_and_category_names(self):
         """(reference segmenter.py:220-242)"""

@@ -192,6 +192,10 @@ class SemanticSegmenter(BaseSegmenter):
                       "decoder": self.decoder.init_params(1)}
         self.params = to_device(params, self.device)
 
+    # segment_batch normalizes uint8 images on the device: the drivers
+    # hand it their bytes (metrics/seg_stats.py)
+    accepts_uint8 = True
+
     def get_label_and_category_names(self):
         return ([(label, self.category) for label in self.labels],
                 [self.category])

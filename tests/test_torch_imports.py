@@ -29,6 +29,8 @@ from rewriting_torch.utils.zdataset import z_dataset_for_model
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "rewriting_torch"
 BLOCKED = ("jax", "jaxlib", "PIL", "rewriting_tpu")
+# imported only where a plot is drawn or a widget displayed
+LAZY = ("matplotlib", "IPython")
 
 _IMPORT_ALL = f"""
 import sys
@@ -41,7 +43,7 @@ names = [m.name for m in pkgutil.walk_packages(rewriting_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = sorted(n for n, m in sys.modules.items()
-                if m is not None and n.split(".")[0] in {BLOCKED!r})
+                if m is not None and n.split(".")[0] in {BLOCKED + LAZY!r})
 print(len(names), loaded)
 print(" ".join(names))
 """
@@ -61,6 +63,12 @@ SLICE9 = ("native", "metrics.inception", "metrics.fid", "metrics.get_fid",
           "metrics.slimnet", "metrics.num_smiles", "segment", "segment.nn",
           "segment.prroi", "segment.resnet", "segment.upernet",
           "segment.segmenter", "segment.semantic", "segment.faceparse")
+SLICE10 = ("serve", "metrics.seg_stats", "metrics.seg_correct_mod",
+           "metrics.fused_pipeline", "metrics.experiments",
+           "metrics.samples", "metrics.patch_fid", "metrics.plot_patch_fids",
+           "utils.parallelfolder", "utils.sampler", "utils.segdata",
+           "utils.segviz", "utils.hostshard", "ui", "ui.labwidget",
+           "ui.paintwidget", "ui.rewriteapp")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -70,7 +78,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9:
+    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10:
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -170,6 +178,46 @@ def test_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
     rq = RunningQuantile()
     rq.add(torch.ones(4, 2))
     assert rq.levels[0].device.type == "cpu"
+
+
+def test_slice10_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                 monkeypatch):
+    """The server, the drivers and the UI run on the card by default: their
+    command lines and default feature and segmenter loaders raise without
+    CUDA; over CPU objects they run there."""
+    from rewriting_torch import serve
+    from rewriting_torch.metrics import (fused_pipeline, patch_fid, samples,
+                                         seg_stats)
+    from rewriting_torch.ui import GanRewriteApp
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--toy", "--port", "0"])
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    torch.save({}, weights / "stylegan2_church.pt")
+    monkeypatch.setenv("REWRITING_TPU_WEIGHTS", str(weights))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--dataset", "church", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fused_pipeline.main(["--n", "2", "--results", str(tmp_path / "f")])
+    (tmp_path / "r" / "church_clean").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seg_stats.main(["church_clean", "--n", "2", "--results",
+                        str(tmp_path / "r")])
+    (tmp_path / "gt").mkdir()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        samples.gt_stats(str(tmp_path / "gt"), 8, 2)
+    model = ProgressiveGenerator(sizes=[8, 8, 4], device="cpu")
+    gw = ProgressiveGanRewriter(model, model.init_params(seed=0),
+                                z_dataset_for_model(model, 4), layernum=2,
+                                device="cpu")
+    assert gw.device.type == "cpu"
+    assert len(GanRewriteApp(gw, size=8, num_canvases=2).canvases) == 2
+    seq = SeqStyleGAN2(8, style_dim=16, n_mlp=1, device="cpu")
+    sgw = SeqStyleGanRewriter(seq, seq.init_params(seed=0),
+                              z_dataset_for_model(seq, 4), layernum=3,
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        patch_fid.patch_fid_sweep(sgw, sgw, [1], n=2)
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
