@@ -98,7 +98,18 @@ set to 0 just before it and read just after:
   distances), each stage a child process; the patch FID sweep at layer 8
   against phase 5's edit, FID statistics of real images and the
   generated samples.  K2 runs in every served render and edit, the UI's
-  canvases, the fused pass and the patch renders.
+  canvases, the fused pass and the patch renders;
+- the multi-device paths (``rewriting_torch/parallel``), each job a set
+  of child processes on this card: one rank on NCCL (``sample_clean``
+  with a mesh against phase 9's PNGs, the layer-8 rewriter's sharded key
+  moment against phase 5's, the four edits of phase 16 with a mesh
+  against its losses, tp and GPipe at one rank), then 2 and 4 ranks
+  sharing the card over gloo (dp sampling, the sharded moment, the edits
+  over 2 ranks, tp 2- and 4-way with K1's gate off and on, dp x sp 1x2,
+  2x2 and 1x4, GPipe of the 8-layer style MLP over 2 and 4 stages), each
+  rank's K1, K2 and K3 launches, the collectives built from all-reduces
+  (``comm.built``; 0 on NCCL) and its seconds, which are ranks sharing one
+  card and not a scaling figure.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -3341,6 +3352,315 @@ def check_sampling(model, params, outdir: str, n: int, batch_size: int,
             **launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the multi-device paths, in child jobs on the card
+# ---------------------------------------------------------------------------
+
+# (ranks, backend, checks, the data-axis sizes of the dp x sp meshes) of
+# phase 33's jobs: one rank on NCCL, then ranks sharing the card over gloo
+# (NCCL refuses two ranks on one GPU)
+MESH_JOBS = ((1, "nccl", ("sample", "moment", "edits", "tp", "gpipe"), ()),
+             (2, "gloo", ("dp", "moment", "edits", "tp", "sp", "gpipe"),
+              (1,)),
+             (4, "gloo", ("dp", "moment", "tp", "sp", "gpipe"), (2, 1)))
+MESH_BATCH = 16         # dp and GPipe; tp takes 2 of it, dp x sp 4
+MOMENT_RTOL = 1e-5      # sharded key moment vs phase 5's, of its max
+LATENT_RTOL = 1e-5      # GPipe style MLP vs the seq stages, of max |w|
+MESH_JOB_TIMEOUT = 600
+
+
+def noisy_params(params) -> dict:
+    """`params` with noise strengths 0.1 .. 0.5 (seeded weights have 0),
+    so that each image shows the noise rows it read."""
+    import torch
+    out = dict(params)
+    for i, name in enumerate(sorted(n for n in params
+                                    if n.endswith(".noise"))):
+        out[name] = {"weight": torch.full_like(params[name]["weight"],
+                                               0.1 * (1 + i % 5))}
+    return out
+
+
+def moment_cache(rw) -> dict:
+    """`rw`'s key moment as its ``r2m.npz`` cache holds it (the state and
+    the key arguments), for a rewriter built in another process on the
+    same z to read the same moment."""
+    import torch
+    rows = len(rw.zds) * rw.k_shape[1] * rw.k_shape[2]
+    return {"state": {"count": torch.tensor(float(rows)),
+                      "mom": rw.c_matrix.detach().cpu()},
+            "args": {"sample_size": len(rw.zds), "layer": rw.firstlayer}}
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.to(got.device).float()
+    if tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def mesh_job(spec: dict) -> dict:
+    """One rank of a phase-33 job (every rank runs it): the checks named in
+    ``spec["checks"]``, each with the launch counts set to 0 just before it
+    and read just after, each held against its single-device result from
+    the parent's earlier phases.  Raises on any check that fails; returns
+    {check: its numbers}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rewriting_torch.metrics.sample import sample_clean
+    from rewriting_torch.models.stylegan2 import SeqStyleGAN2
+    from rewriting_torch.ops import blur2d as kblur
+    from rewriting_torch.ops import upconv_blur as kup
+    from rewriting_torch.ops import upsample2x as kup2
+    from rewriting_torch.ops.precision import apply_parity_tier
+    from rewriting_torch.parallel import (comm, make_mesh, make_mesh_2d,
+                                          pipelined_style_mapper,
+                                          sharded_sampler,
+                                          spatial_sharded_sampler,
+                                          tensor_shard_params,
+                                          tensor_sharded_sampler)
+    from rewriting_torch.rewrite import SeqStyleGanRewriter
+    from rewriting_torch.rewrite.multi import batch_apply_edits
+    from rewriting_torch.utils.renormalize import decode_png
+    from rewriting_torch.utils.zdataset import z_dataset_for_model
+
+    apply_parity_tier()
+    device = comm.default_device()
+    world = dist.get_world_size()
+    model = SeqStyleGAN2(**spec["model"], device=device)
+    params = model.init_params(seed=0)
+    noisy = noisy_params(params)
+    z = spec["z"]
+    mesh = make_mesh()
+    data = mesh.group("data")
+    out = {}
+
+    def counts():
+        return {"k1": kup.launches, "k2": kblur.launches,
+                "k2_backward": kblur.backward_launches,
+                "k2_general": kblur.general_launches,
+                "k3": kup2.launches + kup2.general_launches,
+                "built": comm.built}
+
+    def run(name, fn):
+        kup.launches = kblur.launches = kblur.backward_launches = 0
+        kblur.general_launches = kup2.launches = kup2.general_launches = 0
+        comm.built = 0
+        sync(device)
+        t1 = time.time()
+        numbers = fn()
+        sync(device)
+        out[name] = {"s": time.time() - t1, **numbers, **counts()}
+
+    def sample():
+        outdir = os.path.join(spec["workdir"], f"mesh_sample_{world}")
+        kup.set_fused_upconv("on", min_res=0)    # as phase 9's kept PNGs
+        try:
+            sample_clean(model, params, outdir, n=64, batch_size=16,
+                         mesh=mesh)
+        finally:
+            kup.set_fused_upconv("off", min_res=256)
+        names = sorted(os.listdir(outdir))
+        if names != sorted(os.listdir(spec["clean_dir"])):
+            raise AssertionError(f"sample_clean(mesh) wrote {len(names)} "
+                                 "files, not phase 9's")
+        lsb = 0
+        for name in names:
+            if not name.endswith(".png"):
+                continue
+            with open(os.path.join(outdir, name), "rb") as f:
+                a = decode_png(f.read()).astype(np.int16)
+            with open(os.path.join(spec["clean_dir"], name), "rb") as f:
+                b = decode_png(f.read()).astype(np.int16)
+            lsb = max(lsb, int(np.abs(a - b).max()))
+        if lsb > 1:
+            raise AssertionError(f"sample_clean(mesh) PNGs {lsb} LSB from "
+                                 "phase 9's")
+        return {"images": 64, "lsb": lsb}
+
+    def dp():
+        imgs = comm.all_gather(sharded_sampler(model, mesh)(noisy, z), data)
+        return {"rel": _rel(imgs, spec["ref_images"])}
+
+    def moment():
+        rw = SeqStyleGanRewriter(model, params,
+                                 z_dataset_for_model(model, 1000), 8,
+                                 mesh=mesh, device=device)
+        return {"rel": _rel(rw.c_matrix, spec["c8"])}
+
+    def edits():
+        # phase 16's statistics, read from the cache the parent wrote: the
+        # check is the edits split over the ranks (the moment check holds
+        # the sharded statistics), and two rewriters built apart round
+        # their statistics apart, which L1 and Adam amplify (6.8e-5 in the
+        # final losses at one rank on an H100)
+        t1 = time.time()
+        rw = SeqStyleGanRewriter(model, params,
+                                 z_dataset_for_model(model, 1000), 7,
+                                 cachedir=spec["cache7"], mesh=mesh,
+                                 device=device)
+        sync(device)
+        stats_s = time.time() - t1
+        requests = []
+        for name in BATCH_REQUESTS:
+            with open(os.path.join(MASKS, "church", f"{name}.json")) as f:
+                requests.append(json.load(f))
+        weights, losses, solve_ms = batch_apply_edits(
+            rw, requests, niter=spec["steps"], mesh=mesh,
+            return_timing=True)
+        gap = float(np.abs(np.asarray(losses)
+                           - np.asarray(spec["losses16"])).max())
+        if len(weights) != len(requests) or not gap <= BATCH_LOSS_TOL:
+            raise AssertionError(f"{len(weights)} edits, final losses "
+                                 f"{gap} from phase 16's")
+        return {"stats_s": stats_s, "solve_ms": solve_ms, "loss_gap": gap,
+                "final_losses": [float(v) for v in losses]}
+
+    def tp(gate):
+        mt = make_mesh(axis="model")
+        local = tensor_shard_params(model, noisy, mt, axis="model")
+        held = sum(local[n]["weight"].numel() for n in local
+                   if n.endswith(".mconv.dconv"))
+        full = sum(params[n]["weight"].numel() for n in params
+                   if n.endswith(".mconv.dconv"))
+        if gate:
+            kup.set_fused_upconv("on", min_res=0)
+        try:
+            imgs = tensor_sharded_sampler(model, mt)(local, z[:2])
+        finally:
+            kup.set_fused_upconv("off", min_res=256)
+        return {"rel": _rel(imgs, spec["ref_images"][:2]),
+                "dconv_share": held / full}
+
+    def sp(n_data):
+        m2 = make_mesh_2d(n_data, world // n_data)
+        block = spatial_sharded_sampler(model, m2)(noisy, z[:4])
+        imgs = comm.all_gather(comm.all_gather(block, m2.group("spatial"),
+                                               dim=1), m2.group("data"))
+        return {"rel": _rel(imgs, spec["ref_images"][:4]),
+                "block": list(block.shape)}
+
+    def gpipe():
+        w = pipelined_style_mapper(model, make_mesh(axis="stage"))(params, z)
+        rel = _rel(w, spec["ref_w"])
+        if not rel <= LATENT_RTOL:
+            raise AssertionError(f"GPipe style MLP {rel} from the seq "
+                                 "stages")
+        return {"rel": rel}
+
+    for check in spec["checks"]:
+        if check == "sample":
+            run("sample", sample)
+        elif check == "dp":
+            run("dp", dp)
+        elif check == "moment":
+            run("moment", moment)
+        elif check == "edits":
+            run("edits", edits)
+        elif check == "tp":
+            run("tp", lambda: tp(False))
+            run("tp_k1", lambda: tp(True))
+        elif check == "sp":
+            for n_data in spec["sp_data"]:
+                run(f"sp_{n_data}x{world // n_data}", lambda: sp(n_data))
+        elif check == "gpipe":
+            run("gpipe", gpipe)
+    for name, numbers in out.items():
+        tol = MOMENT_RTOL if name == "moment" else FORWARD_RTOL
+        if "rel" in numbers and not numbers["rel"] <= tol:
+            raise AssertionError(f"{name}: {numbers['rel']} of max from "
+                                 f"the single-device result (limit {tol})")
+    return out
+
+
+def check_multi_device(model, params, clean_dir: str, c8, r2m7, losses16,
+                       workdir: str, jobs=MESH_JOBS, steps: int = 2001
+                       ) -> dict:
+    """Phase 33: the multi-device paths in child jobs of `jobs` (ranks,
+    backend, checks, dp x sp data sizes), each rank one process on the
+    model's card (:func:`mesh_job`), against single-device results: phase
+    9's PNGs (`clean_dir`), phase 5's key moment `c8`, phase 16's final
+    losses `losses16` (the edits on phase 16's layer-7 statistics, written
+    from `r2m7`, :func:`moment_cache`, as the rewriter's cache), and the
+    renders and style latents of `params` at ``MESH_BATCH`` z computed
+    here.  On the card every sharded path must
+    launch K2 (K1 with its gate on), no path K3 or the general K2, and the
+    NCCL job build no collective from an all-reduce.  Prints each rank's
+    numbers (its times are ranks sharing one card, not a scaling figure);
+    returns them by job."""
+    import torch
+
+    from rewriting_torch.parallel import comm
+    from rewriting_torch.stats import tally
+    from rewriting_torch.stats.running import RunningSecondMoment
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    cache7 = os.path.join(workdir, "r2m_layer7")
+    tally.save_cached_state(os.path.join(cache7, "r2m.npz"),
+                            RunningSecondMoment(r2m7["state"]),
+                            r2m7["args"])
+    z = standard_z_sample(MESH_BATCH, model.z_dim, seed=2)
+    with torch.no_grad():
+        ref_images = model(noisy_params(params), z).cpu()
+        ref_w = model.pipeline.subsequence(upto_layer="latents")(
+            params, model.make_bag(z))["latent"].cpu()
+    device = model.device
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device()
+                              if device.index is None else device.index)
+    spec = {"model": {"size": model.size, "style_dim": model.style_dim,
+                      "n_mlp": model.n_mlp},
+            "z": z, "ref_images": ref_images, "ref_w": ref_w,
+            "c8": c8.detach().cpu(), "losses16": list(losses16),
+            "clean_dir": clean_dir, "workdir": workdir, "steps": steps,
+            "cache7": cache7}
+    results = {}
+    for ranks, backend, checks, sp_data in jobs:
+        t1 = time.time()
+        # NCCL takes one rank a GPU (rank r on cuda:r); gloo ranks share
+        outs = comm.spawn(mesh_job, ranks,
+                          device=None if backend == "nccl" and ranks > 1
+                          else str(device),
+                          backend=backend, timeout_s=MESH_JOB_TIMEOUT,
+                          args=({**spec, "checks": checks,
+                                 "sp_data": sp_data},))
+        job = f"{ranks}_{backend}"
+        results[job] = {"s": time.time() - t1, "ranks": outs}
+        for rank, out in enumerate(outs):
+            for name, n in out.items():
+                print(f"phase 33, {ranks} rank(s) on {backend}, rank {rank},"
+                      f" {name}: {n['s']:.3f} s; " + ", ".join(
+                          f"{k} {v:.3e}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in n.items() if k != "s"))
+        print(f"phase 33, {ranks} rank(s) on {backend}: {results[job]['s']:.3f}"
+              " s with the processes' start (ranks sharing one card)")
+        if device.type != "cuda":
+            continue
+        for rank, out in enumerate(outs):
+            for name, n in out.items():
+                if n["k3"] or n["k2_general"]:
+                    raise AssertionError(f"{job} rank {rank} {name} launched "
+                                         "K3 or the general K2")
+                if name in ("dp", "moment", "edits", "tp") or \
+                        name.startswith("sp_"):
+                    if n["k2"] <= 0:
+                        raise AssertionError(f"{job} rank {rank} {name} never"
+                                             " launched K2")
+                if name in ("sample", "tp_k1") and n["k1"] <= 0:
+                    raise AssertionError(f"{job} rank {rank} {name} never "
+                                         "launched K1")
+                if name == "edits" and n["k2_backward"] <= 0:
+                    raise AssertionError(f"{job} rank {rank} edits never "
+                                         "launched K2's backward")
+                if backend == "nccl" and n["built"]:
+                    raise AssertionError(f"{job} built {n['built']} "
+                                         "collectives from all-reduces")
+    return results
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -3502,6 +3822,7 @@ def main() -> int:
     kblur.launches = kblur.general_launches = 0
     kup2.launches = kup2.general_launches = 0
     loop, rw8 = run_edit_loop(model, params, niter=2001)
+    c8 = rw8.c_matrix                       # phase 33's yardstick
     w8_edit = loop.pop("edited_weight")     # phase 32's edited rewriter
     k3_on_models = [kup2.launches, kup2.general_launches]
     kernels["blur2d"]["launches"] = kblur.launches
@@ -3907,6 +4228,7 @@ def main() -> int:
         # 16. four edits as one batch at layer 7, previews, paramio ----------
         t0 = time.time()
         batch = check_batched_edits(rw7, kblur, work.name)
+        r2m7 = moment_cache(rw7)                # phase 33's edits read it
         kernels["blur2d"]["batch_solve_launches"] = batch["k2_loop"]
         kernels["blur2d"]["preview_launches"] = {
             "batched": batch["preview_k2"][0],
@@ -4099,6 +4421,24 @@ def main() -> int:
         for name, key in (("upconv_blur", "k1"), ("upsample2x", "k3")):
             kernels[name]["slice10_launches"] = {
                 phase_name: n[key] for phase_name, n in slice10.items()}
+
+        # 33. the multi-device paths: a 1-rank NCCL job, then 2 and 4 ranks
+        # sharing the card over gloo, each a child job --------------------
+        t0 = time.time()
+        multi = check_multi_device(model, params, clean_dir, c8, r2m7,
+                                   batch["final_losses"], work.name)
+        for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                          ("upsample2x", "k3")):
+            kernels[name]["slice11_launches"] = {
+                job: {check: [n[key] for n in
+                              (out[check] for out in res["ranks"])]
+                      for check in res["ranks"][0]}
+                for job, res in multi.items()}
+        kernels["blur2d"]["slice11_backward_launches"] = {
+            job: [out["edits"]["k2_backward"] for out in res["ranks"]]
+            for job, res in multi.items() if "edits" in res["ranks"][0]}
+        print(json.dumps({"multi_device": multi}))
+        phase("33 multi-device paths", t0)
     finally:
         work.cleanup()
         keep.cleanup()

@@ -10,8 +10,10 @@ single solve over the edit axis, the port solves all edits in one loop
 decomposition, as for SeqPre): the goals are folded into the batch
 edit-major (E·B rows), and each edit's conv is one group of one grouped
 convolution (``ops/grouped.py``), so a step runs the window once for all
-edits.  The JAX package's ``mesh=`` (sharding the edits over devices) is
-not ported.
+edits.  With ``mesh=`` the edits are split over the ranks of the mesh's
+``data`` axis (``parallel/mesh.py``), each rank solving its own share in
+that one loop, and every rank gets every edit's weight and loss back in
+request order.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..core import DataBag
 from ..ops import precision
+from ..parallel import comm
 from . import solve
 
 
@@ -62,13 +65,49 @@ def fold_bags(bags: Sequence[DataBag]) -> DataBag:
 @precision.run_deterministic
 def batch_apply_edits(gw, requests: Sequence[dict], rank: int = 1,
                       niter: int = 2001, lr: float = 0.05,
-                      return_timing: bool = False):
+                      return_timing: bool = False, mesh=None,
+                      axis: str = "data"):
     """Solve every request at once: (one edited target weight per request,
     the (E,) final losses), and with ``return_timing`` the solve's
     milliseconds.  ``gw.params`` is left as it is: the caller commits an
     edit with ``gw.set_target_weight`` or keeps all of them.  The goals
     and the solve run with cuDNN's deterministic algorithms: the batch
-    repeats bit for bit."""
+    repeats bit for bit.
+
+    With `mesh` (called on every rank, each with the same rewriter and
+    requests) the E edits are split over the ranks of `axis`, in request
+    order: uneven splits work, the first ranks taking one edit more (a
+    rank past the last edit takes none and only joins the gather).  The
+    weights and losses come back on every rank; the timing is this
+    rank's own solve (0 with no edit).  A request that fails on any rank
+    (a bad mask, a missing key) raises on every rank (``comm.agree``), so
+    no rank is left waiting in the gather."""
+    if mesh is None:
+        return _solve(gw, requests, rank, niter, lr, return_timing)
+    group = mesh.group(axis)
+    error = None
+    try:
+        if not requests:
+            raise ValueError("no edit requests")
+        counts = comm.uneven_counts(len(requests), group.size)
+        lo = sum(counts[:group.index])
+        mine = list(requests[lo:lo + counts[group.index]])
+        out = (_solve(gw, mine, rank, niter, lr, return_timing) if mine
+               else ([], np.zeros(0, np.float32), 0.0))
+    except Exception as e:      # noqa: BLE001 - raised on every rank below
+        error = e
+    comm.agree(error, group)
+    w0 = gw.target_weight()
+    weights = comm.gather_in_order(out[0], counts, group, like=w0)
+    losses = comm.gather_in_order(
+        list(torch.as_tensor(np.asarray(out[1]), device=w0.device)),
+        counts, group, like=w0.new_zeros(()))
+    return ((list(weights), losses.cpu().numpy())
+            + ((out[2],) if return_timing else ()))
+
+
+def _solve(gw, requests: Sequence[dict], rank: int, niter: int, lr: float,
+           return_timing: bool):
     goals = build_goals(gw, requests, rank=rank)
     bag = fold_bags([g[0] for g in goals])
     goal_out = torch.cat([g[1] for g in goals])

@@ -45,12 +45,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import DataBag, leaves, tree_map
 from ..models.proggan import conv2d_grouped
 from ..models.stylegan2 import modconv_linear, params_to
 from ..ops import precision
-from ..stats import running, tally
+from ..parallel.comm import same_device
+from ..stats import tally
 from ..stats.quantile import RunningQuantile
 from ..utils import imgviz, renormalize
 from ..utils.device import resolve_device
@@ -73,7 +75,14 @@ class GanRewriter:
     """Rewriter over a stage-pipeline generator; subclasses pick the edit
     window with :meth:`maplayers`.  `model` provides ``pipeline``,
     ``make_bag(z)``, ``z_dim`` and ``device``.  Runs on ``device`` (default
-    ``cuda``), which must be the model's."""
+    ``cuda``), which must be the model's.
+
+    ``mesh`` (``parallel.make_mesh``) shards the key statistics' pass over
+    the ranks of its ``data`` axis: the rewriter is then built on every
+    rank, each tallying its share of every z batch, and every rank holds
+    the same moment (``tally.cached_second_moment``: rank 0 alone writes
+    its cache).  Under a mesh the other caches are read and written by
+    rank 0 alone; the other ranks compute those statistics uncached."""
 
     def __init__(self, model, params, zds, layernum,
                  cachedir: Optional[str] = None,
@@ -82,6 +91,7 @@ class GanRewriter:
                  tight_paste: bool = True,
                  key_method: str = "zca",
                  stats_batch_size: int = 10,
+                 mesh=None,
                  device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -97,6 +107,10 @@ class GanRewriter:
         self.tight_paste = tight_paste
         self.key_method = key_method
         self.stats_batch_size = stats_batch_size
+        self.mesh = mesh
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's rank is on {mesh.device}, the "
+                             f"rewriter on {self.device}")
         self.unit_rs = None
         self.unit_rq: Optional[RunningQuantile] = None
         self.cad_rq: Optional[RunningQuantile] = None
@@ -202,8 +216,12 @@ class GanRewriter:
         self.params = dict(self.original_params)
 
     def rf(self, fn: str) -> Optional[str]:
-        return None if self.cachedir is None else os.path.join(self.cachedir,
-                                                               fn)
+        """The cache file `fn`, or None: no cache dir, or a rank other
+        than 0 of a mesh."""
+        if self.cachedir is None or (self.mesh is not None
+                                     and dist.get_rank() != 0):
+            return None
+        return os.path.join(self.cachedir, fn)
 
     # -- statistics -------------------------------------------------------------
     def _key_rows(self, zbatch) -> torch.Tensor:
@@ -214,19 +232,15 @@ class GanRewriter:
 
     def collect_2nd_moment(self) -> torch.Tensor:
         """Uncentered second moment C = E[k kᵀ] of the context keys over
-        the z dataset; npz-cached in the JAX package's format."""
-        cachefile = self.rf("r2m.npz")
+        the z dataset; npz-cached in the JAX package's format; sharded over
+        the mesh's ``data`` axis if the rewriter has a mesh."""
+        cachefile = (None if self.cachedir is None
+                     else os.path.join(self.cachedir, "r2m.npz"))
         args = {"sample_size": len(self.zds), "layer": self.firstlayer}
-        cached = tally.load_cached_state(cachefile, args)
-        if cached is not None:
-            r = running.RunningSecondMoment.from_state_dict(cached,
-                                                            self.device)
-        else:
-            with precision.schedule_suspended():
-                r = tally.tally_second_moment(self._key_rows, self.zds.zs,
-                                              self.stats_batch_size,
-                                              self.device)
-            tally.save_cached_state(cachefile, r, args)
+        with precision.schedule_suspended():
+            r = tally.cached_second_moment(
+                self._key_rows, self.zds.zs, self.stats_batch_size,
+                self.device, cachefile, args, mesh=self.mesh)
         return r.moment()
 
     def covariance_adjusted_query_key(self, k) -> np.ndarray:

@@ -29,6 +29,18 @@ it answers, so a request's device error is its own 500; the process-wide
 cuDNN settings of the deterministic solves and the kernels' launch
 counters see one request at a time.  ``status`` only reads attributes.
 
+A rewriter with a mesh (``gw.mesh``, ``parallel.make_mesh``) solves
+``/edit_batch`` over the mesh's ranks (``batch_apply_edits(mesh=)``).  The
+JAX package's server is one controller of its device mesh; the port's is
+one process a rank: rank 0 serves HTTP (:func:`serve`), and every other
+rank builds the same rewriter (so its statistics are collective) and then
+runs :meth:`EditingService.work` until rank 0 stops it.  Rank 0 sends each
+collective request (an ``/edit_batch``, or the stop) to the others with
+its current edit weight, which the other requests change on rank 0 alone;
+every other request stays on rank 0.  A batch that fails on any rank fails
+on all of them, so rank 0 answers it with a 500 and every rank goes on
+serving.
+
 Command line (runs on the card)::
 
     python3 -m rewriting_torch.serve --dataset church --layer 8
@@ -36,7 +48,8 @@ Command line (runs on the card)::
 
 loads the dataset's checkpoint through ``models/zoo.py`` (truncation 0.5)
 with 1000 z of statistics; ``--toy`` serves a small seeded ProgGAN and
-needs no checkpoint.
+needs no checkpoint.  Started by ``torchrun`` with more than one rank, it
+builds a mesh of them all and serves as above.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -51,17 +65,55 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from .parallel import comm
 from .utils import renormalize
 
 
 class EditingService:
-    """Thread-safe wrapper around a rewriter for serving."""
+    """Thread-safe wrapper around a rewriter for serving.  With a mesh on
+    the rewriter it is built on every rank, at the same point (it makes
+    the job's control group)."""
 
     def __init__(self, gw):
         self.gw = gw
         self.lock = threading.Lock()
         self.edits_applied = 0
         self._batch_weights = None
+        self.mesh = getattr(gw, "mesh", None)
+        self._control = None if self.mesh is None else comm.control_group()
+
+    def _collective(self, request):
+        """Rank 0: send `request` (an ``/edit_batch``'s arguments, or None
+        to stop) and the current edit weight to the other ranks, which
+        then take their part in it (:meth:`work`)."""
+        if self.mesh is not None:
+            comm.broadcast_object(request, self._control)
+            comm.broadcast(self.gw.target_weight().contiguous(), 0,
+                           self.mesh.group("data"))
+
+    def work(self) -> None:
+        """Ranks other than 0: take part in rank 0's collective requests
+        until it stops.  A batch that fails raises on every rank
+        (``batch_apply_edits``' agreement): rank 0 answers it with a 500,
+        and the others go on to the next request."""
+        while True:
+            request = comm.broadcast_object(None, self._control)
+            weight = comm.broadcast(
+                torch.empty_like(self.gw.target_weight()).contiguous(), 0,
+                self.mesh.group("data"))
+            if request is None:
+                return
+            self.gw.set_target_weight(weight)
+            try:
+                with self._on_device():
+                    self._edit_batch(**request)
+            except Exception:   # noqa: BLE001 - rank 0 answers it with a 500
+                pass
+
+    def stop_workers(self) -> None:
+        """Rank 0: end the other ranks' :meth:`work`."""
+        with self.lock:
+            self._collective(None)
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -107,11 +159,16 @@ class EditingService:
             count = self.edits_applied   # this edit's, not a later one's
         return {"ok": True, "edits_applied": count}
 
-    def edit_batch(self, requests, rank=1, niter=2001, lr=0.05):
+    def _edit_batch(self, **kwargs):
         from .rewrite.multi import batch_apply_edits
+        return batch_apply_edits(self.gw, mesh=self.mesh, **kwargs)
+
+    def edit_batch(self, requests, rank=1, niter=2001, lr=0.05):
+        kwargs = {"requests": requests, "rank": rank, "niter": niter,
+                  "lr": lr}
         with self._on_device():
-            weights, losses = batch_apply_edits(self.gw, requests, rank=rank,
-                                                niter=niter, lr=lr)
+            self._collective(kwargs)
+            weights, losses = self._edit_batch(**kwargs)
             self._batch_weights = weights
         return {"ok": True, "n": len(weights),
                 "final_losses": [float(v) for v in losses]}
@@ -225,11 +282,19 @@ def make_handler(service: EditingService):
 def serve(gw, host: str = "127.0.0.1", port: int = 8765):
     """The editing server over rewriter `gw`, bound and not yet serving:
     call its ``serve_forever()`` (in a thread, as the tests do); port 0
-    takes a free one (``server_address[1]``)."""
+    takes a free one (``server_address[1]``).  With a mesh on `gw`, call it
+    on rank 0 while the other ranks run :func:`serve_workers`, and stop
+    them with ``httpd.service.stop_workers()`` when done."""
     service = EditingService(gw)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     httpd.service = service
     return httpd
+
+
+def serve_workers(gw) -> None:
+    """A rank other than 0 of a served mesh: rank 0's collective requests
+    until it stops them."""
+    EditingService(gw).work()
 
 
 def main(argv=None) -> None:
@@ -241,25 +306,38 @@ def main(argv=None) -> None:
                     help="serve a small seeded ProgGAN (no checkpoints)")
     args = ap.parse_args(argv)
     from .utils.zdataset import z_dataset_for_model
+    mesh, kw = None, {}
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .parallel import make_mesh
+        mesh = make_mesh()
+        kw = {"device": mesh.device}
     if args.toy:
         from .models import ProgressiveGenerator
         from .rewrite import ProgressiveGanRewriter
-        model = ProgressiveGenerator(sizes=[32, 32, 16, 16])
+        model = ProgressiveGenerator(sizes=[32, 32, 16, 16], **kw)
         params = model.init_params(seed=0)
         zds = z_dataset_for_model(model, 100)
-        gw = ProgressiveGanRewriter(model, params, zds, layernum=3)
+        gw = ProgressiveGanRewriter(model, params, zds, layernum=3,
+                                    mesh=mesh, **kw)
     else:
         from .models.zoo import load_seq_stylegan
         from .rewrite import SeqStyleGanRewriter
-        model, params = load_seq_stylegan(args.dataset, truncation=0.5)
+        model, params = load_seq_stylegan(args.dataset, truncation=0.5,
+                                          **kw)
         zds = z_dataset_for_model(model, 1000)
-        gw = SeqStyleGanRewriter(model, params, zds, args.layer)
+        gw = SeqStyleGanRewriter(model, params, zds, args.layer, mesh=mesh,
+                                 **kw)
+    if mesh is not None and mesh.coords["data"] != 0:
+        serve_workers(gw)
+        return
     httpd = serve(gw, port=args.port)
     print(f"editing server on :{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if mesh is not None:
+            httpd.service.stop_workers()
 
 
 if __name__ == "__main__":

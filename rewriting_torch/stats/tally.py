@@ -10,7 +10,10 @@ the z batch on `device`, without autograd; the cache is keyed on the
 sample and batch sizes and the tally's own arguments (``k``,
 ``resolution``, ``size``).  ``tally_second_moment`` is the loop that the
 JAX package's ``tally_second_moment_scan`` (:422-460) compiles into one
-program.
+program; with ``mesh=`` each rank of the mesh takes its share of every z
+batch and the ranks' states are merged by an all-reduce, and
+``cached_second_moment`` adds the cache, which on a mesh rank 0 alone
+writes.
 
 The conditional tallies take ``compute(zbatch) -> [(condition, rows),
 ...]``; ``conditional_samples`` makes those pairs from activations and
@@ -26,7 +29,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import comm
 from . import running
 from .quantile import RunningQuantile
 from .running import RunningMean, RunningSecondMoment
@@ -125,14 +130,54 @@ def _tally(reducer, compute: Callable, zds, batch_size: int,
 
 
 def tally_second_moment(rows_fn: Callable[[torch.Tensor], torch.Tensor],
-                        zs: np.ndarray, batch_size: int,
-                        device) -> RunningSecondMoment:
+                        zs: np.ndarray, batch_size: int, device, mesh=None,
+                        axis: str = "data") -> RunningSecondMoment:
     """Uncentered second moment of ``rows_fn(zbatch)`` (rows, dim) over all
-    z, in batches of `batch_size`."""
+    z, in batches of `batch_size`.
+
+    With `mesh` (called on every rank, each with the same z) each rank of
+    `axis` takes its share of every batch, the first ranks one z more
+    where the batch does not divide; the ranks' states are then merged by
+    an all-reduce of (count x moment, count) in the reducer's float32, so
+    every rank holds the moment of all z."""
     r = RunningSecondMoment()
+    if mesh is None:
+        with torch.no_grad():
+            for z in _zbatches(zs, batch_size, device):
+                r.add(rows_fn(z))
+        return r
+    group = mesh.group(axis)
+    if min(batch_size, len(zs)) < group.size:     # the same on every rank
+        raise ValueError(f"{len(zs)} z in batches of {batch_size} leave "
+                         f"some of {group.size} ranks no rows")
     with torch.no_grad():
-        for z in _zbatches(zs, batch_size, device):
-            r.add(rows_fn(z))
+        for i in range(0, len(zs), batch_size):
+            counts = comm.uneven_counts(len(zs[i:i + batch_size]), group.size)
+            lo = i + sum(counts[:group.index])
+            if counts[group.index]:
+                r.add(rows_fn(torch.as_tensor(
+                    zs[lo:lo + counts[group.index]], device=device)))
+    count = comm.all_reduce(r.state["count"].clone(), group)
+    total = comm.all_reduce(r.state["mom"] * r.state["count"], group)
+    r.state = {"count": count, "mom": total / count}
+    return r
+
+
+def cached_second_moment(rows_fn, zs: np.ndarray, batch_size: int, device,
+                         cachefile: Optional[str], args: dict, mesh=None,
+                         axis: str = "data") -> RunningSecondMoment:
+    """:func:`tally_second_moment` with the npz cache keyed on `args`.  On
+    a mesh every rank decides from the same file (a barrier first, so no
+    rank reads while another writes), the ranks tally together, and rank
+    0 alone writes the cache; every rank returns the all-reduced state."""
+    if mesh is not None:
+        comm.barrier()
+    cached = load_cached_state(cachefile, args)
+    if cached is not None:
+        return RunningSecondMoment.from_state_dict(cached, device)
+    r = tally_second_moment(rows_fn, zs, batch_size, device, mesh, axis)
+    if mesh is None or dist.get_rank() == 0:
+        save_cached_state(cachefile, r, args)
     return r
 
 

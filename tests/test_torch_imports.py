@@ -69,6 +69,8 @@ SLICE10 = ("serve", "metrics.seg_stats", "metrics.seg_correct_mod",
            "utils.parallelfolder", "utils.sampler", "utils.segdata",
            "utils.segviz", "utils.hostshard", "ui", "ui.labwidget",
            "ui.paintwidget", "ui.rewriteapp")
+SLICE11 = ("parallel", "parallel.comm", "parallel.mesh", "parallel.tensor",
+           "parallel.pipeline", "parallel.dryrun")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -78,7 +80,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10:
+    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10 + SLICE11:
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -218,6 +220,33 @@ def test_slice10_entry_points_raise_without_cuda(no_cuda, tmp_path,
                               device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         patch_fid.patch_fid_sweep(sgw, sgw, [1], n=2)
+
+
+def test_slice11_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                 monkeypatch):
+    """The meshes, the process group, the dry run and the multi-rank
+    command lines default to the card and raise without CUDA, before
+    joining any job."""
+    import torch.distributed as dist
+    from rewriting_torch import parallel, serve
+    from rewriting_torch.metrics import sample
+    from rewriting_torch.parallel import comm, dryrun
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh_2d(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        comm.init_process_group()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--ranks", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample.main(["--dataset", "church", "--mesh", "--results",
+                     str(tmp_path / "s")])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--toy", "--port", "0"])
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):
