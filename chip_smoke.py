@@ -109,7 +109,22 @@ set to 0 just before it and read just after:
   2x2 and 1x4, GPipe of the 8-layer style MLP over 2 and 4 stages), each
   rank's K1, K2 and K3 launches, the collectives built from all-reduces
   (``comm.built``; 0 on NCCL) and its seconds, which are ranks sharing one
-  card and not a scaling figure.
+  card and not a scaling figure;
+- faces-1024 (StyleGAN2, ``channel_multiplier=2``) from a seeded
+  ``stylegan2_faces.pt`` loaded through the zoo, batch 8:
+  ``pipeline_fast`` with its s2d tail, ``fused=True`` (K2 after the
+  subpixel up-convs) and K1 on at every layer against the seq pipeline;
+  the recommended schedule, an int8 schedule (``_int_mm`` at the dconvs)
+  and a "default" schedule from 256 px with K1 on (its one-pass bf16 mode)
+  against "highest", PSNR beside a floor, images/s of each; K1's bf16
+  mode against its plain version and timed; an edit bit for bit with and
+  without an int8 schedule on every stage; the RGB skip upsample's two
+  forms timed;
+- ProgGAN celebhq-1024 from a seeded ``proggan_celebhq-620d161c.pth``:
+  its s2d tail against the seq stages, its mixed schedule against
+  "highest";
+- each encoder and decoder of ``SemanticSegmenter`` on seeded weights,
+  the card against the CPU over phase 9's PNGs.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -1951,8 +1966,10 @@ def write_seeded_weights(root: str, labeldata: dict,
     """Seeded weights of the slice-9 networks under the released file
     names in `root` (the layout ``$REWRITING_TPU_WEIGHTS`` gives): the
     pytorch-fid Inception, SlimNet's training checkpoint, the face parser,
-    unified parsing with `labeldata`, the colour segmenter.  BatchNorms are
-    identities.  Returns {file: MiB}."""
+    unified parsing with `labeldata`, the colour segmenter; with "faces"
+    and "celebhq" in `which`, the StyleGAN2 faces-1024 (rosinality's
+    layout) and ProgGAN celebhq-1024 (the reference's) generators of
+    phases 34-35.  BatchNorms are identities.  Returns {file: MiB}."""
     import torch
 
     from rewriting_torch.metrics import fid, inception, slimnet
@@ -1990,6 +2007,18 @@ def write_seeded_weights(root: str, labeldata: dict,
         save(enc, "upp", "encoder_epoch_40.pth")
         save(dec, "upp", "decoder_epoch_40.pth")
         save(labeldata, "upp", "labels.json")
+    if "faces" in which:
+        from rewriting_torch.models import SeqStyleGAN2
+        faces = SeqStyleGAN2(1024, style_dim=512, n_mlp=8,
+                             channel_multiplier=2, device="cpu")
+        save(rosinality_checkpoint(faces, faces.init_params(seed=3)),
+             "stylegan2_faces.pt")
+    if "celebhq" in which:
+        from rewriting_torch.models import ProgressiveGenerator
+        from rewriting_torch.models.zoo import PROGGAN_ZOO
+        pg = ProgressiveGenerator(resolution=1024, device="cpu")
+        save(proggan_checkpoint(pg, pg.init_params(seed=4)),
+             PROGGAN_ZOO["celebhq"])
     if "color" in which:
         base = ("segmodel", "color-resnet18dilated-ppm_deepsup")
         save(semantic.resnet18_deepstem_to_torch(
@@ -3661,6 +3690,449 @@ def check_multi_device(model, params, clean_dir: str, c8, r2m7, losses16,
     return results
 
 
+# phases 34-36: the 1024 models and the segmenters no caller sets
+FACES_BATCH = 8
+FACES_UPCONV_SHAPES = ((8, 128, 256, 64), (16, 256, 128, 128))
+BF16_FLOPS_PER_S = 989e12
+BF16_UPCONV_RTOL = 1e-4    # K1 one-pass vs its plain version, of max |plain|
+# PSNR floors against "highest" of the faces-1024 and celebhq-1024 renders
+# (peak: the "highest" render's range), stated before the first chip run
+PSNR_FLOORS = {"recommended": 30.0, "int8": 20.0, "k1_default": 30.0,
+               "proggan_mixed": 30.0}
+SUSPEND_MASK = os.path.join(MASKS, "faces", "effective-smile-3.json")
+SUSPEND_LAYER = 6       # the 512-channel 16x16 conv of faces-1024
+SUSPEND_NZ = 160        # the mask's images are numbered up to 136
+SEG_ARCHS = (("resnet50dilated", "ppm_deepsup"), ("resnet101dilated", "c1"),
+             ("resnet101", "ppm"), ("mobilenetv2dilated", "c1_deepsup"),
+             ("resnext101", "ppm_deepsup"), ("resnet18dilated", "c1"))
+
+
+def upconv_bf16_bound_ms(b, i, h, o):
+    """K1's least time in its one-pass bf16 mode: 2 * MACs at the bf16
+    dense peak, plus the blur and epilogue at the fp32 peak; or the
+    bytes (fp32 in and out), whichever is larger."""
+    nbytes, macs, outputs = _upconv_counts(b, i, h, o)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2.0 * macs / BF16_FLOPS_PER_S
+              + (2.0 * 8 + 5) * outputs / FP32_FLOPS_PER_S) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def psnr(out, ref) -> float:
+    """PSNR of `out` against `ref` in dB, the peak the range of `ref`."""
+    import math
+    mse = float(((out - ref) ** 2).mean())
+    peak = float(ref.max() - ref.min())
+    return 10.0 * math.log10(peak * peak / max(mse, 1e-30))
+
+
+def images_per_s(torch, fn, batch: int, runs: int = 3) -> float:
+    """Images a second of `fn` (one batch), the median of `runs` timed
+    calls after one warm-up, the host clock around work that ends in a
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t1 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+    return batch / sorted(times)[len(times) // 2]
+
+
+def check_upconv_bf16(torch, gen) -> dict:
+    """K1's one-pass bf16 mode against its plain version (x and the taps
+    rounded to bf16, the rest fp32) at faces-1024's 512 layer and at
+    (16,256,128,128)->128, with and without the epilogue; times of the
+    mode, its plain version, the 3xTF32 mode and the library
+    ``conv_transpose2d`` in bf16 (the 6x6 composite kernel) at each."""
+    from rewriting_torch.ops import upconv_blur as kup
+
+    kf = tuple(float(v) for v in (0.25, 0.75, 0.75, 0.25))
+    rows, max_err, max_rel = [], 0.0, 0.0
+    for b, i, h, o in FACES_UPCONV_SHAPES:
+        x = torch.randn((b, i, h, h), generator=gen, device="cuda")
+        wf = torch.randn((o, i, 3, 3), generator=gen,
+                         device="cuda") / (3.0 * i ** 0.5)
+        epi = (torch.rand((b, o), generator=gen, device="cuda") + 0.5,
+               torch.randn((1, 1, 2 * h, 2 * h), generator=gen,
+                           device="cuda"),
+               torch.randn((o,), generator=gen, device="cuda"))
+        for label, extra in (("no epilogue", ()), ("epilogue", epi)):
+            got = kup.upconv_blur_cuda(x, wf, kf, *extra, tier="default")
+            want = kup.upconv_blur_reference(x, wf, kf, *extra,
+                                             tier="default")
+            exact = kup.upconv_blur_reference(x, wf, kf, *extra)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            rounding = rel_diff(want, exact)
+            max_err, max_rel = max(max_err, err), max(max_rel, rel)
+            print(f"upconv_blur one-pass bf16 {(b, i, h, h)} -> {o} {label}:"
+                  f" max abs diff {err:.3e}, {rel:.3e} of max |plain| "
+                  f"(limit {BF16_UPCONV_RTOL}); the plain bf16 version is "
+                  f"{rounding:.3e} from fp32")
+            if tuple(got.shape) != (b, o, 2 * h, 2 * h) or \
+                    not rel <= BF16_UPCONV_RTOL:
+                raise AssertionError(f"K1's bf16 mode differs from its "
+                                     f"plain version by {rel}")
+        w6 = library_up_kernel(torch, wf, kf).to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        ms = time_ms(torch, lambda: kup.upconv_blur_cuda(
+            x, wf, kf, *epi, tier="default"))
+        plain_ms = time_ms(torch, lambda: kup.upconv_blur_reference(
+            x, wf, kf, *epi, tier="default"))
+        tf32_ms = time_ms(torch, lambda: kup.upconv_blur_cuda(x, wf, kf,
+                                                              *epi))
+        library_ms = time_ms(torch, lambda: library_upconv(torch, xb, w6))
+        bound, by = upconv_bf16_bound_ms(b, i, h, o)
+        rows.append({"shape": [b, i, h, h, o], "ms": ms,
+                     "plain_ms": plain_ms, "tf32_ms": tf32_ms,
+                     "library_ms": library_ms, "bound_ms": bound,
+                     "bound_by": by,
+                     "tile": list(kup._plan(b, i, h, h, o, 16))})
+        print(f"upconv_blur one-pass bf16 time {(b, i, h, h)} -> {o}: "
+              f"{ms:.4f} ms ({ms / bound:.2f}x its bound {bound:.4f} ms, "
+              f"{by}), plain {plain_ms:.4f} ms, 3xTF32 mode {tf32_ms:.4f} "
+              f"ms, library conv_transpose2d 6x6 bf16 {library_ms:.4f} ms")
+        del x, wf, epi, w6, xb
+    return {"rows": rows, "max_abs_err": max_err, "max_rel_err": max_rel}
+
+
+def check_faces(model, params, counters, batch: int = FACES_BATCH) -> dict:
+    """Phase 34, faces-1024 (`model`, `params` from the zoo): at `batch`,
+    ``pipeline_fast`` with its s2d tail and ``fused=True`` against the seq
+    pipeline; K1 on at every layer (3xTF32) against it too; the
+    recommended schedule, an int8 schedule and a "default" schedule from
+    256 px with K1 on (its one-pass mode) against "highest", PSNR beside
+    its floor; images/s of each; the two forms of the 3-channel 512 ->
+    1024 skip upsample.  `counters()` gives the kernels' launches; each
+    run's launches are returned."""
+    import torch
+
+    from rewriting_torch.models.stylegan2 import (
+        mixed_precision_schedule, recommended_precision_schedule)
+    from rewriting_torch.ops import make_kernel
+    from rewriting_torch.ops import precision
+    from rewriting_torch.ops import upconv_blur as kup
+    from rewriting_torch.ops.upfirdn2d import (separable_taps, upsample2d,
+                                               upfirdn2d_matmul)
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    z = standard_z_sample(batch, model.z_dim, seed=1)
+    noise = model.prepare_noise(batch)
+    out = {"batch": batch, "launches": {}, "images_per_s": {},
+           "psnr": {}}
+
+    def run(name, fn):
+        base = counters()
+        y = fn()
+        torch.cuda.synchronize()
+        now = counters()
+        out["launches"][name] = {k: now[k] - base[k] for k in now}
+        return y
+
+    seq = run("seq", lambda: model(params, z, noise, fast=False))
+    if tuple(seq.shape) != (batch, 1024, 1024, 3) or \
+            not bool(torch.isfinite(seq).all()):
+        raise AssertionError(f"faces-1024 seq render {tuple(seq.shape)}")
+    fast = run("fast", lambda: model(params, z, noise))
+    fused = run("fused", lambda: model(params, z, noise, fused=True))
+    kup.set_fused_upconv("on", min_res=0)
+    try:
+        k1 = run("fast_k1", lambda: model(params, z, noise))
+    finally:
+        kup.set_fused_upconv("off", min_res=256)
+    errs = {"fast": rel_diff(fast, seq), "fused": rel_diff(fused, seq),
+            "fast_k1": rel_diff(k1, seq)}
+    out["rel_err"] = errs
+    print(f"faces-1024 batch {batch}: max diff / max |seq| of pipeline_fast "
+          f"(s2d tail) {errs['fast']:.3e}, fused=True {errs['fused']:.3e}, "
+          f"pipeline_fast with K1 on {errs['fast_k1']:.3e} (limit "
+          f"{FORWARD_RTOL})")
+    if not max(errs.values()) <= FORWARD_RTOL:
+        raise AssertionError(f"faces-1024 pipelines differ: {errs}")
+    if out["launches"]["fast_k1"]["k1"] <= 0 or \
+            out["launches"]["fused"]["k2"] <= 0:
+        raise AssertionError(f"faces-1024 launches {out['launches']}")
+    del fused, k1
+
+    schedules = {
+        "recommended": (recommended_precision_schedule(model), False),
+        "int8": (mixed_precision_schedule(512, tier="int8"), False),
+        "k1_default": (mixed_precision_schedule(256), True)}
+    renders = {}
+    for name, (schedule, k1_on) in schedules.items():
+        precision.set_precision_schedule(schedule)
+        if k1_on:
+            kup.set_fused_upconv("on", min_res=0)
+        try:
+            renders[name] = run(name, lambda: model(params, z, noise))
+            out["images_per_s"][name] = images_per_s(
+                torch, lambda: model(params, z, noise), batch)
+        finally:
+            precision.set_precision_schedule(None)
+            kup.set_fused_upconv("off", min_res=256)
+        out["psnr"][name] = psnr(renders[name], fast)
+    out["images_per_s"]["highest"] = images_per_s(
+        torch, lambda: model(params, z, noise), batch)
+    kup.set_fused_upconv("on", min_res=0)
+    try:
+        out["images_per_s"]["highest_k1"] = images_per_s(
+            torch, lambda: model(params, z, noise), batch)
+    finally:
+        kup.set_fused_upconv("off", min_res=256)
+    print(f"faces-1024 PSNR against 'highest' (dB): "
+          + ", ".join(f"{k} {v:.2f} (floor {PSNR_FLOORS[k]})"
+                      for k, v in out["psnr"].items()))
+    print(f"faces-1024 images/s at batch {batch}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      out["images_per_s"].items()))
+    low = {k: v for k, v in out["psnr"].items() if not v >= PSNR_FLOORS[k]}
+    if low:
+        raise AssertionError(f"faces-1024 schedules below their floors: "
+                             f"{low}")
+    if out["launches"]["k1_default"]["k1_bf16"] <= 0:
+        raise AssertionError("the 'default' stages never launched K1's "
+                             "one-pass mode")
+    del renders, seq, fast
+
+    # the RGB skip: 3 channels, 512 -> 1024
+    rgb = torch.randn((batch, 3, 512, 512), device="cuda")
+    kern = make_kernel([1, 3, 3, 1])
+    taps = separable_taps([1, 3, 3, 1])
+    a = upsample2d(rgb, kern)
+    b = upfirdn2d_matmul(rgb, taps, taps, up=2, pad=(2, 1), gain=4.0)
+    skip_err = rel_diff(b, a)
+    out["skip_upsample"] = {
+        "shape": list(rgb.shape), "max_rel_diff": skip_err,
+        "upsample2d_ms": time_ms(torch, lambda: upsample2d(rgb, kern)),
+        "upfirdn2d_matmul_ms": time_ms(torch, lambda: upfirdn2d_matmul(
+            rgb, taps, taps, up=2, pad=(2, 1), gain=4.0))}
+    print(f"RGB skip upsample {tuple(rgb.shape)} -> 1024: upsample2d "
+          f"(depthwise conv) {out['skip_upsample']['upsample2d_ms']:.4f} "
+          f"ms, upfirdn2d_matmul "
+          f"{out['skip_upsample']['upfirdn2d_matmul_ms']:.4f} ms; "
+          f"{skip_err:.3e} apart")
+    if not skip_err <= FORWARD_RTOL:
+        raise AssertionError(f"the skip upsample's two forms differ by "
+                             f"{skip_err}")
+    return out
+
+
+def check_schedule_suspension(model, params, niter: int = 201) -> dict:
+    """An edit's solve on faces-1024 with no schedule and with every stage
+    scheduled "int8": the losses and the edited weight bit for bit equal
+    (the statistics, goals and solve suspend the schedule)."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.models.stylegan2 import mixed_precision_schedule
+    from rewriting_torch.ops import precision
+    from rewriting_torch.rewrite import SeqStyleGanRewriter
+    from rewriting_torch.utils.zdataset import z_dataset_for_model
+
+    with open(SUSPEND_MASK) as f:
+        request = json.load(f)
+    rw = SeqStyleGanRewriter(model, params,
+                             z_dataset_for_model(model, SUSPEND_NZ),
+                             layernum=SUSPEND_LAYER, device=model.device)
+    runs = []
+    for schedule in (None, mixed_precision_schedule(4, tier="int8",
+                                                    keep_rgb=False)):
+        precision.set_precision_schedule(schedule)
+        try:
+            rw.revert()
+            losses = rw.apply_edit(request, rank=1, niter=niter)
+            runs.append((np.asarray(losses), rw.target_weight().clone()))
+        finally:
+            precision.set_precision_schedule(None)
+    rw.revert()
+    same = bool(np.array_equal(runs[0][0], runs[1][0])
+                and torch.equal(runs[0][1], runs[1][1]))
+    print(f"faces-1024 layer {SUSPEND_LAYER} edit ({niter} steps) with and "
+          f"without an int8 schedule on every stage: bit for bit equal "
+          f"{same}; loss {runs[0][0][0]:.6f} -> {runs[0][0][-1]:.6f}")
+    if not same:
+        raise AssertionError("an installed schedule changed an edit")
+    return {"layer": SUSPEND_LAYER, "steps": niter, "bit_for_bit": same,
+            "loss_last": float(runs[0][0][-1])}
+
+
+def check_proggan_celebhq(model, params, batch: int = FACES_BATCH) -> dict:
+    """Phase 35, ProgGAN celebhq-1024: ``pipeline_fast`` (the s2d tail)
+    against ``pipeline``; its recommended mixed schedule against
+    "highest", PSNR beside its floor; images/s of each."""
+    import torch
+
+    from rewriting_torch.models.proggan import recommended_precision_schedule
+    from rewriting_torch.ops import precision
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    if not model._fast_overrides:
+        raise AssertionError("celebhq-1024 has no s2d tail")
+    z = standard_z_sample(batch, model.z_dim, seed=1)
+    seq = model(params, z, fast=False)
+    fast = model(params, z)
+    err = rel_diff(fast, seq)
+    precision.set_precision_schedule(recommended_precision_schedule(model))
+    try:
+        mixed = model(params, z)
+        mixed_ips = images_per_s(torch, lambda: model(params, z), batch)
+    finally:
+        precision.set_precision_schedule(None)
+    out = {"batch": batch, "rel_err": err,
+           "psnr": {"proggan_mixed": psnr(mixed, fast)},
+           "images_per_s": {
+               "seq": images_per_s(torch, lambda: model(params, z,
+                                                        fast=False), batch),
+               "fast": images_per_s(torch, lambda: model(params, z), batch),
+               "mixed": mixed_ips}}
+    print(f"celebhq-1024 batch {batch}: pipeline_fast (s2d tail) vs "
+          f"pipeline {err:.3e} of max (limit {FORWARD_RTOL}); mixed "
+          f"schedule PSNR {out['psnr']['proggan_mixed']:.2f} dB (floor "
+          f"{PSNR_FLOORS['proggan_mixed']}); images/s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["images_per_s"].items()))
+    if tuple(fast.shape) != (batch, 1024, 1024, 3) or \
+            not err <= FORWARD_RTOL or \
+            not out["psnr"]["proggan_mixed"] >= PSNR_FLOORS["proggan_mixed"]:
+        raise AssertionError(f"celebhq-1024: {out}")
+    return out
+
+
+def check_semantic_archs(clean_dir: str, n: int = 2) -> dict:
+    """Phase 36: each encoder and decoder of ``SemanticSegmenter`` on
+    seeded weights, the card against the CPU over `n` clean PNGs: the
+    decoder's scores before their softmax within SEG_TOL of their
+    largest, the labels equal where the top-two margin exceeds SEG_TOL of
+    it; ms a batch on the card."""
+    import torch
+
+    from rewriting_torch import native
+    from rewriting_torch.segment.semantic import SemanticSegmenter
+
+    x = torch.as_tensor(next(iter(native.read_batches(
+        png_paths(clean_dir), n))))
+    out = {}
+    for arch, decoder in SEG_ARCHS:
+        segs = [SemanticSegmenter(None, ["-", "a", "b", "c"], arch=arch,
+                                  decoder=decoder, device=dev)
+                for dev in ("cuda", "cpu")]
+
+        def logits(seg, images):
+            feats = seg.ENCODERS[seg.arch][0](
+                seg.params["encoder"], seg.normalize(images),
+                seg.dilate_scale)
+            return seg.decoder.logits(seg.params["decoder"], feats,
+                                      seg_size=tuple(images.shape[1:3]))
+        with torch.no_grad():
+            card, cpu = logits(segs[0], x.cuda()), logits(segs[1], x)
+        err = rel_diff(card.cpu(), cpu)
+        labels = segs[0].segment_batch(x.cuda()).cpu()
+        sure = top2_margin(cpu) > SEG_TOL * float(cpu.abs().max())
+        agree = bool((labels[:, 0] == segs[1].segment_batch(x)[:, 0])
+                     [sure].all())
+        ms = time_ms(torch, lambda: segs[0].segment_batch(x.cuda()), runs=5)
+        out[f"{arch}+{decoder}"] = {"rel_err": err, "labels_agree": agree,
+                                    "sure_share": float(sure.float().mean()),
+                                    "ms_per_batch": ms}
+        print(f"SemanticSegmenter {arch} + {decoder}, {n} images, card vs "
+              f"CPU: scores {err:.3e} of max (limit {SEG_TOL}); labels "
+              f"agree where sure ({float(sure.float().mean()):.3f} of "
+              f"pixels): {agree}; {ms:.3f} ms a batch on the card")
+        if not (err <= SEG_TOL and agree):
+            raise AssertionError(f"{arch} + {decoder}: {out[arch + '+' + decoder]}")
+        del segs
+    return out
+
+
+def run_slice12(weights: str, clean_dir: str, counters) -> tuple:
+    """Phases 34-36 on the seeded 1024 checkpoints in `weights` (written by
+    ``write_seeded_weights(..., which=("faces", "celebhq"))``) and the
+    PNGs of `clean_dir`; returns (results, launches by phase)."""
+    import torch
+
+    from rewriting_torch.models import zoo
+
+    results, launches = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(34)
+
+    def since(base):
+        now = counters()
+        return {k: now[k] - base[k] for k in now}
+
+    with weights_env(weights):
+        t0 = time.time()
+        base = counters()
+        model, params = zoo.load_seq_stylegan("faces", device="cuda")
+        faces = check_faces(model, params, counters)
+        faces["upconv_bf16"] = check_upconv_bf16(torch, gen)
+        faces["suspension"] = check_schedule_suspension(model, params)
+        launches["faces"] = since(base)
+        results["faces"] = faces
+        print(json.dumps({"faces_1024": faces}))
+        del model, params
+        phase("34 faces-1024", t0)
+
+        t0 = time.time()
+        base = counters()
+        pg, pgp = zoo.load_proggan("celebhq", device="cuda")
+        results["celebhq"] = check_proggan_celebhq(pg, pgp)
+        launches["celebhq"] = since(base)
+        print(json.dumps({"celebhq_1024": results["celebhq"]}))
+        del pg, pgp
+        phase("35 ProgGAN celebhq-1024", t0)
+
+    t0 = time.time()
+    base = counters()
+    results["semantic"] = check_semantic_archs(clean_dir)
+    launches["semantic"] = since(base)
+    print(json.dumps({"semantic_archs": results["semantic"]}))
+    phase("36 segmenter encoders and decoders", t0)
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def slice12_counts() -> dict:
+    """The kernels' launch counters, K1's two modes apart."""
+    from rewriting_torch.ops import blur2d as kblur
+    from rewriting_torch.ops import upconv_blur as kup
+    from rewriting_torch.ops import upsample2x as kup2
+    return {"k1": kup.launches, "k1_bf16": kup.launches_bf16,
+            "k2": kblur.launches, "k2_general": kblur.general_launches,
+            "k3": kup2.launches + kup2.general_launches}
+
+
+def add_slice12(kernels: dict, results: dict, launches: dict) -> None:
+    """Phases 34-36 into the kernels line: K1's one-pass row (its numbers
+    at (16,256,128,128)->128, its launches on phase 34's "default" stages)
+    and each kernel's ``slice12_launches``."""
+    faces = results["faces"]
+    bf16 = faces["upconv_bf16"]
+    head = bf16["rows"][-1]
+    kernels["upconv_blur_bf16"] = {
+        "name": "upconv_blur_bf16", "route": "cuda",
+        "source": "rewriting_torch/csrc/upconv_blur.cu",
+        "replaces": "rewriting_tpu/ops/pallas_upconv.py:232 "
+                    "(upconv_blur_pallas at DEFAULT precision)",
+        "launches": faces["launches"]["k1_default"]["k1_bf16"],
+        "max_abs_err": bf16["max_abs_err"],
+        "max_rel_err": bf16["max_rel_err"], "at": head["shape"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "tf32_mode_ms": head["tf32_ms"],
+        "rows": bf16["rows"],
+        "slice12_launches": {k: v["k1_bf16"]
+                             for k, v in faces["launches"].items()}}
+    for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                      ("upsample2x", "k3")):
+        kernels[name]["slice12_launches"] = {
+            **{f"faces_{k}": v[key] for k, v in faces["launches"].items()},
+            **{k: v[key] for k, v in launches.items()}}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -4439,13 +4911,28 @@ def main() -> int:
             for job, res in multi.items() if "edits" in res["ranks"][0]}
         print(json.dumps({"multi_device": multi}))
         phase("33 multi-device paths", t0)
+
+        # 34-36: slice 12's paths, the 1024 models on seeded weights
+        # written under the released names, and the segmenters no caller
+        # sets, over phase 9's PNGs
+        t0 = time.time()
+        files = write_seeded_weights(weights9, {}, which=("faces",
+                                                          "celebhq"))
+        print(f"seeded 1024 checkpoints written in {time.time() - t0:.3f} "
+              "s: " + ", ".join(f"{k} {v:.1f} MiB" for k, v in
+                                files.items()))
+        slice12, launches12 = run_slice12(weights9, clean_dir,
+                                          slice12_counts)
+        print(f"launches on phases 34-36: {launches12}")
+        add_slice12(kernels, slice12, launches12)
     finally:
         work.cleanup()
         keep.cleanup()
 
     # the kernels line, then the result ---------------------------------------------
     print(json.dumps({"kernels": [kernels[k] for k in
-                                  ("blur2d", "upconv_blur", "upsample2x")]}))
+                                  ("blur2d", "upconv_blur",
+                                   "upconv_blur_bf16", "upsample2x")]}))
     print(f"card: {card}")
     phase("all", t_all)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,16 @@ functions ``fn(params_subtree, bag) -> bag`` plus a flat params dict
 ``{stage_name: {param_name: tensor}}``.  Stage names are dotted paths
 (``layer4.sconv.mconv.dconv``), so a query may name a stage or any
 enclosing prefix.  Weights are shared between slices because every slice
-reads the one params dict passed at call time.
+reads the one params dict passed at call time.  Each stage runs inside
+``ops.precision.stage_scope(stage.name)``, where an installed precision
+schedule reads its name (JAX package :75-82).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+from ..ops.precision import stage_scope
 from .bag import DataBag
 
 StageFn = Callable[[Dict[str, Any], DataBag], DataBag]
@@ -52,10 +55,11 @@ class StagePipeline:
             # a stage fn may take the FULL params dict (fn._full_params =
             # True): the fused stages of pipeline_fast read the params of
             # several seq stages; the seq pipeline never does
-            if getattr(stage.fn, "_full_params", False):
-                bag = stage.fn(params, bag)
-            else:
-                bag = stage.fn(params.get(stage.name, {}), bag)
+            with stage_scope(stage.name):
+                if getattr(stage.fn, "_full_params", False):
+                    bag = stage.fn(params, bag)
+                else:
+                    bag = stage.fn(params.get(stage.name, {}), bag)
         return bag
 
     def stage_names(self) -> Tuple[str, ...]:

@@ -17,18 +17,29 @@ weight, one for each G-th of the batch, which is folded edit-major (G·B
 rows); ``rewrite/multi.preview_edits`` renders many edits in one forward
 that way.
 
-``pipeline_fast`` is ``pipeline``: the JAX package's fast tail folds the
-upsample into the conv and carries a space-to-depth layout, a TPU layout
-trick that engages only at 512 px and above with at most 32 channels; it
-is not ported, as for StyleGAN2 at faces-1024.  The per-layer precision
-schedules (:427-472) are not ported either.
+``pipeline_fast`` (JAX package :107-262) has the seq stages and reads the
+same params, except in the narrow high-resolution tail: an upsampling
+block of at most 32 channels at 512 px or more, and the blocks after it
+while they stay that narrow (the 512 and 1024 blocks of celebhq-1024),
+fold the 2x nearest upsample into the conv (per-phase 3x3 taps over the
+undilated input) and carry the map in the space-to-depth layout of
+``models/stylegan2.py`` through pixel norm, conv and WScale; the output
+1x1 conv takes it back to NCHW, and so does the pixel norm of a wider
+block after the tail.  The same products, regrouped.  A model with no
+such block (church-256) has ``pipeline_fast`` = ``pipeline``.
+
+Every conv reads its stage's precision tier (``ops/precision.py``);
+``stage_resolution``, ``mixed_precision_schedule`` and
+``recommended_precision_schedule`` are the JAX package's (:427-472).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence
+import re
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +47,10 @@ import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline
 from ..ops.grouped import folded, side_by_side
-from ..ops.precision import apply_parity_tier
+from ..ops.precision import apply_parity_tier, tiered
 from ..utils.device import resolve_device
+from .stylegan2 import (_d2s_of, _pass_through, _rgb_product,
+                        _s2d_kernel_transform)
 
 RESOLUTION_SIZES = {
     8: [512, 512, 512],
@@ -78,11 +91,11 @@ def conv2d_grouped(x: torch.Tensor, weight: torch.Tensor, padding: int,
     one grouped convolution (``ops/grouped.py``).  With ``groups`` = G the
     map is (B, G·I, H, W) and the weight (G·O, I, k, k) already."""
     if weight.dim() == 4:
-        return F.conv2d(x, weight, padding=padding, groups=groups)
+        return tiered(F.conv2d, x, weight, padding=padding, groups=groups)
     g, o, i, kh, kw = weight.shape
-    return folded(F.conv2d(side_by_side(x, g), weight.reshape(g * o, i, kh,
-                                                              kw),
-                           padding=padding, groups=g), g)
+    return folded(tiered(F.conv2d, side_by_side(x, g),
+                         weight.reshape(g * o, i, kh, kw), padding=padding,
+                         groups=g), g)
 
 
 def _make_conv(padding: int):
@@ -114,6 +127,83 @@ def _return_output(params, d: DataBag) -> DataBag:
 
 
 # ---------------------------------------------------------------------------
+# The s2d tail (JAX package :97-199); s2d maps as in models/stylegan2.py
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _nearest_up_placement() -> np.ndarray:
+    """(p, t, d): the 2x nearest upsample then a 3x3 SAME conv as a 3-tap
+    correlation over the original grid for each output phase p (tap d
+    lands on original row i + t - 1)."""
+    b = np.zeros((2, 3, 3), np.float32)
+    for p in range(2):
+        for dd in range(3):
+            r = p + dd - 1
+            b[p, r // 2 + 1, dd] += 1.0
+    return b
+
+
+def _tail_weight(weight: torch.Tensor) -> torch.Tensor:
+    if weight.dim() != 4:
+        raise ValueError("pipeline_fast's s2d tail takes one conv weight, "
+                         f"got shape {tuple(weight.shape)}; the seq "
+                         "pipeline takes a stack")
+    return weight
+
+
+def _fold_up_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, I, 3, 3) -> (4O, I, 3, 3) phase kernels of conv o nearest_up2x,
+    phase-major."""
+    b = torch.from_numpy(_nearest_up_placement()).to(w.device, w.dtype)
+    o_c, i_c = w.shape[:2]
+    k = torch.einsum("ptd,PTD,oidD->pPoitT", b, b, w)
+    return k.reshape(4 * o_c, i_c, 3, 3)
+
+
+def _pixel_norm_s2d(params, d: DataBag) -> DataBag:
+    x = d["fmap"]
+    b, c4, h, w = x.shape
+    xp = x.reshape(b, 4, c4 // 4, h, w)
+    n = xp * torch.rsqrt(torch.mean(xp * xp, dim=2, keepdim=True) + 1e-8)
+    return DataBag(d, fmap=n.reshape(b, c4, h, w))
+
+
+def _pixel_norm_from_s2d(params, d: DataBag) -> DataBag:
+    """The pixel norm of a block that ends the tail: the s2d map back to
+    NCHW first; the block's other stages are the seq ones."""
+    return _pixel_norm(params, DataBag(d, fmap=_d2s_of(d["fmap"])))
+
+
+def _make_fold_up_conv(from_s2d: bool):
+    def fn(params, d: DataBag) -> DataBag:
+        x = _d2s_of(d["fmap"]) if from_s2d else d["fmap"]
+        k = _fold_up_kernel(_tail_weight(params["weight"]))
+        return DataBag(d, fmap=tiered(F.conv2d, x, k, padding=1))
+    return fn
+
+
+def _conv_s2d_stage(params, d: DataBag) -> DataBag:
+    wt = _s2d_kernel_transform(_tail_weight(params["weight"]))
+    return DataBag(d, fmap=tiered(F.conv2d, d["fmap"], wt, padding=1))
+
+
+def _make_wscale_s2d(scale: float):
+    def fn(params, d: DataBag) -> DataBag:
+        return DataBag(d, fmap=d["fmap"] * scale
+                       + params["bias"].repeat(4)[None, :, None, None])
+    return fn
+
+
+def _out_conv1x1_s2d(params, d: DataBag) -> DataBag:
+    """The 1x1 RGB conv of an s2d map; the output is NCHW."""
+    x = d["fmap"]
+    b, c4, h, w = x.shape
+    wk = _tail_weight(params["weight"])[:, :, 0, 0]          # (3, I)
+    rgb = tiered(_rgb_product, x.reshape(b * 4, c4 // 4, h, w), wk)
+    return DataBag(d, fmap=_d2s_of(rgb.reshape(b, 12, h, w)))
+
+
+# ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
 
@@ -139,15 +229,41 @@ class ProgressiveGenerator:
 
         stages: List[Stage] = [Stage("input", _input_stage)]
         self._conv_specs = {}  # name -> (in_c, out_c, kernel, padding, gain)
+        # pipeline_fast's stages where they differ from the seq pipeline's
+        self._fast_overrides: Dict[str, object] = {}
+        self._s2d_tail = False
+        cur_res = [4]
 
         def add_block(name, in_c, out_c, ksize, padding, gain, upsample):
             stages.append(Stage(f"{name}.norm", _pixel_norm))
             if upsample:
                 stages.append(Stage(f"{name}.up", _upscale2x))
+                cur_res[0] *= 2
             stages.append(Stage(f"{name}.conv", _make_conv(padding)))
-            stages.append(Stage(f"{name}.wscale",
-                                _make_wscale(gain / math.sqrt(in_c))))
+            scale = gain / math.sqrt(in_c)
+            stages.append(Stage(f"{name}.wscale", _make_wscale(scale)))
             self._conv_specs[name] = (in_c, out_c, ksize, padding, gain)
+            # the s2d tail, with the JAX package's gate (:253-283)
+            fast = self._fast_overrides
+            if upsample and out_c <= 32 and cur_res[0] >= 512 and ksize == 3:
+                if self._s2d_tail:
+                    fast[f"{name}.norm"] = _pixel_norm_s2d
+                fast[f"{name}.up"] = _pass_through
+                fast[f"{name}.conv"] = _make_fold_up_conv(self._s2d_tail)
+                fast[f"{name}.wscale"] = _make_wscale_s2d(scale)
+                self._s2d_tail = True
+            elif (not upsample and self._s2d_tail and ksize == 3
+                    and out_c <= 32):
+                fast[f"{name}.norm"] = _pixel_norm_s2d
+                fast[f"{name}.conv"] = _conv_s2d_stage
+                fast[f"{name}.wscale"] = _make_wscale_s2d(scale)
+            elif self._s2d_tail and ksize == 1:
+                fast[f"{name}.norm"] = _pixel_norm_s2d
+                fast[f"{name}.conv"] = _out_conv1x1_s2d
+            elif self._s2d_tail:
+                # a wider block after the tail
+                fast[f"{name}.norm"] = _pixel_norm_from_s2d
+                self._s2d_tail = False
 
         layer_i = 0
 
@@ -179,7 +295,9 @@ class ProgressiveGenerator:
         stages.append(Stage("output", _return_output))
         self.output_layer = out_name
         self.pipeline = StagePipeline(stages)
-        self.pipeline_fast = self.pipeline
+        self.pipeline_fast = StagePipeline([
+            Stage(s.name, self._fast_overrides.get(s.name, s.fn))
+            for s in stages]) if self._fast_overrides else self.pipeline
 
     # -- parameters ---------------------------------------------------------
     def init_params(self, seed: int = 0) -> Dict[str, dict]:
@@ -205,7 +323,8 @@ class ProgressiveGenerator:
 
     def __call__(self, params, z, fast: bool = True) -> torch.Tensor:
         """z (B, z_dim) -> (B, H, W, 3) NHWC image in [-1, 1]; ``fast``
-        picks ``pipeline_fast``, which is ``pipeline`` in the port."""
+        picks ``pipeline_fast`` (the s2d tail where it engages), else the
+        seq ``pipeline``."""
         pipe = self.pipeline_fast if fast else self.pipeline
         with torch.no_grad():
             out = pipe(params, self.make_bag(z))["output"]
@@ -312,3 +431,43 @@ def from_tf_parameters(params, device=None
     """(model, params) of the original TF variables (reference
     proggan.py:200-208)."""
     return from_state_dict(state_dict_from_tf_parameters(params), device)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer mixed precision (JAX package :427-472)
+# ---------------------------------------------------------------------------
+
+def stage_resolution(name: str) -> Optional[int]:
+    """The output resolution of a ProgressiveGenerator stage, from its
+    name (layerN.* / output_DxD.*); None for input and output."""
+    m = re.match(r"layer(\d+)\.", name)
+    if m:
+        n = int(m.group(1))
+        return 4 if n <= 2 else 2 ** ((n - 3) // 2 + 3)
+    m = re.match(r"output_(\d+)x", name)
+    if m:
+        return int(m.group(1))
+    return None
+
+
+def mixed_precision_schedule(min_res: int = 128, tier: str = "default",
+                             keep_rgb: bool = True
+                             ) -> Callable[[str], Optional[str]]:
+    """The stages at output resolution >= `min_res` run at `tier`, the
+    rest at the global tier; keep_rgb keeps the output_DxD block there
+    (its rounding goes straight into the image).  Sampling only."""
+    def schedule(stage_name: str) -> Optional[str]:
+        if keep_rgb and stage_name.startswith("output_"):
+            return None
+        r = stage_resolution(stage_name)
+        if r is not None and r >= min_res:
+            return tier
+        return None
+    return schedule
+
+
+def recommended_precision_schedule(model) -> Callable[[str], Optional[str]]:
+    """The JAX package's ProgGAN choice at every size: "default" from
+    16 px, the output block kept at the global tier."""
+    del model
+    return mixed_precision_schedule(16)

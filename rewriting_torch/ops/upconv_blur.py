@@ -13,13 +13,24 @@ pipeline in one pass.  The source, its design and what bounds it are
 described in ``csrc/upconv_blur.cu``.
 
 - :func:`upconv_blur_cuda` launches the kernel on a CUDA tensor or raises,
-  and counts its launches in the module attribute ``launches``.  It has no
-  backward (the JAX kernel has none either): it raises on a tensor that
-  requires a gradient.
+  and counts its launches in the module attribute ``launches`` (3xTF32)
+  or ``launches_bf16`` (one-pass bf16).  It has no backward (the JAX
+  kernel has none either): it raises on a tensor that requires a
+  gradient.
 - :func:`upconv_blur_reference` is the plain version: ``conv_transpose2d``
   then the plain blur and the elementwise epilogue.  The CPU path and the
   tests use it; on the card it is what the kernel is held against.
 - :func:`upconv_blur` picks one of the two by the tensor's device.
+
+Each takes the precision ``tier`` of its stage (``ops/precision.py``), as
+the JAX kernel reads ``get_precision()`` (``pallas_upconv.py:236``):
+"highest" and "high" run the 3xTF32 mode, the counterpart of the JAX
+kernel's HIGHEST and bf16x3 HIGH (:58-78); "default" the one-pass bf16
+mode, the JAX kernel's DEFAULT: ``x`` and ``wf`` rounded to bf16 (to
+nearest even) and their products summed in fp32 on the tensor cores
+(``mma.m16n8k16`` bf16).  Its plain version rounds ``x`` and ``wf`` to
+bf16 and computes the rest in fp32.  The blur and the epilogue are fp32
+in both modes.
 
 All take ``x`` (B, I, H, W); ``wf`` (O, I, 3, 3), the correlation taps of
 the transposed conv (the dconv's weight flipped and scaled, as
@@ -59,8 +70,13 @@ from . import _build
 from .blur2d import blur2d_reference
 from .fused_act import fused_leaky_relu
 
-# launches of the CUDA kernel since the counter was last set to 0
+# launches of the CUDA kernel since the counter was last set to 0: its
+# 3xTF32 mode and its one-pass bf16 mode
 launches = 0
+launches_bf16 = 0
+
+# the kernel's modes (csrc/upconv_blur.cu), by precision tier
+_MODES = {"highest": 0, "high": 0, "default": 1}
 
 _FUSED_MODE = "off"     # "off" | "on" | "auto"
 _FUSED_MIN_RES = 256    # least OUTPUT resolution of a fused layer
@@ -159,15 +175,24 @@ def _geometry(t: Tile) -> dict:
             "smem": 4 * max(ring, epi)}
 
 
+def _mode(tier: str) -> int:
+    if tier not in _MODES:
+        raise ValueError(f"the fused up-conv takes tier highest, high or "
+                         f"default, got {tier!r}")
+    return _MODES[tier]
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, in_c: int, h: int, w: int, out_c: int) -> Tile:
+def _plan(b: int, in_c: int, h: int, w: int, out_c: int,
+          kc_min: int = 8) -> Tile:
     """The tile for a layer shape.  Maps of at most 64 positions go whole,
     ``nimg`` images a block, as many as keep the grid at one block per SM
     or more while the blur's buffers fit; larger maps go in tiles of 8 x
     16 input positions (10 x 18 with the halo: 6 warps of 32 positions).  Blocks take 32 output
     channels and stage 32 input channels at a time where that fits.
     These choices are the fastest of those timed on an H100 at the
-    church-256 shapes (``PERF.md`` §6)."""
+    church-256 shapes (``PERF.md`` §6).  The one-pass bf16 mode takes 16
+    input channels an MMA, so it asks for ``kc_min`` = 16."""
     if min(b, in_c, h, w, out_c) < 1:
         raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
     if h * w <= 64:
@@ -182,7 +207,7 @@ def _plan(b: int, in_c: int, h: int, w: int, out_c: int) -> Tile:
         th, tw, nimg = min(8, h), min(16, w), 1
         warps_n = 2 if out_c > _WARP_N else 1
     warps_m = -(-nimg * (th + 2) * (tw + 2) // _WARP_M)
-    for kc in (32, 16, 8):
+    for kc in (k for k in (32, 16, 8) if k >= kc_min):
         t = Tile(nimg, th, tw, warps_m, warps_n, kc)
         if _geometry(t)["smem"] <= _MAX_SMEM:
             return t
@@ -220,11 +245,15 @@ def _check_epilogue(demod, noise, bias):
 
 
 def upconv_blur_reference(x: torch.Tensor, wf: torch.Tensor, kf,
-                          demod=None, noise=None, bias=None) -> torch.Tensor:
+                          demod=None, noise=None, bias=None,
+                          tier: str = "highest") -> torch.Tensor:
     """Plain PyTorch: the seq stages composed.  ``conv_transpose2d`` with
     the dconv's own (unflipped) weight, the plain blur (pad 1), then the
-    epilogue if given."""
+    epilogue if given; at tier "default" ``x`` and ``wf`` rounded to bf16
+    first."""
     epilogue = _check_epilogue(demod, noise, bias)
+    if _mode(tier) == 1:
+        x, wf = (t.to(torch.bfloat16).float() for t in (x, wf))
     w = torch.flip(wf, (2, 3)).transpose(0, 1)          # (I, O, 3, 3)
     y = F.conv_transpose2d(x, w, stride=2)               # (B, O, 2H+1, 2W+1)
     y = blur2d_reference(y, blur_taps(kf), (1, 1))       # (B, O, 2H, 2W)
@@ -239,7 +268,7 @@ def library():
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                               ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -254,10 +283,13 @@ def _check(name, t, shapes, device):
 
 
 def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
-                     noise=None, bias=None) -> torch.Tensor:
-    """The CUDA kernel on NCHW float32 CUDA tensors; raises on anything the
-    kernel does not take and when the launch fails."""
-    global launches
+                     noise=None, bias=None, tier: str = "highest"
+                     ) -> torch.Tensor:
+    """The CUDA kernel on NCHW float32 CUDA tensors, in the mode of `tier`;
+    raises on anything the kernel does not take and when the launch
+    fails."""
+    global launches, launches_bf16
+    mode = _mode(tier)
     if x.device.type != "cuda":
         raise ValueError(f"upconv_blur_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -273,7 +305,7 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     out_c = wf.shape[0]
     _check("wf", wf, [(out_c, in_c, 3, 3)], x.device)
     taps = flipped_taps(kf)
-    tile = _plan(b, in_c, h, w, out_c)
+    tile = _plan(b, in_c, h, w, out_c, 16 if mode else 8)
     # (O, I, 3, 3) -> (I, 3, 3, O): a block's weight slice is contiguous
     wp = wf.permute(1, 2, 3, 0).contiguous()
     if epilogue:
@@ -292,19 +324,22 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, in_c, out_c, h,
-                w, taps.ctypes.data, *ptrs, *tile, stream)
+                w, taps.ctypes.data, *ptrs, *tile, mode, stream)
     if rc != 0:
         raise RuntimeError(f"upconv_blur kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    if mode:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return y
 
 
 def upconv_blur(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
-                noise=None, bias=None) -> torch.Tensor:
+                noise=None, bias=None, tier: str = "highest") -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cuda":
-        return upconv_blur_cuda(x, wf, kf, demod, noise, bias)
+        return upconv_blur_cuda(x, wf, kf, demod, noise, bias, tier)
     if x.device.type == "cpu":
-        return upconv_blur_reference(x, wf, kf, demod, noise, bias)
+        return upconv_blur_reference(x, wf, kf, demod, noise, bias, tier)
     raise RuntimeError(f"upconv_blur has no path for device {x.device}")

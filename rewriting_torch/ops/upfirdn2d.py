@@ -21,6 +21,14 @@ plain version, a CUDA tensor the hand-written kernel (``ops/blur2d.py``,
 K2, with its backward for a tensor that requires a gradient).
 ``blur_taps`` prepares a blur's taps once and ``apply_blur`` runs them, the
 short path the model's layers take.
+
+``upfirdn2d_matmul`` is the JAX package's separable banded-matmul form
+(:128-176): the upfirdn of a rank-1 kernel as ``My @ x @ Mxᵀ`` with the
+1-D operator matrices ``_upfirdn1d_matrix`` builds on the host by pushing
+an identity through the 1-D upfirdn.  The JAX package sends its narrow
+(<= 8 channel) upsamples there; ``upsample2d`` here keeps its dispatch,
+and ``chip_smoke.py`` times both forms at the RGB skip.  It computes in
+fp32 at every tier, like the blur.
 """
 
 from __future__ import annotations
@@ -60,6 +68,54 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     x = F.pad(x, (p0, p1, p0, p1))
     wdw = torch.from_numpy(kflip).to(x.device, x.dtype).expand(c, 1, kh, kw)
     return F.conv2d(x, wdw, stride=down, groups=c)
+
+
+@functools.lru_cache(maxsize=256)
+def _upfirdn1d_matrix(n: int, taps: tuple, up: int, down: int,
+                      pad0: int, pad1: int) -> np.ndarray:
+    """(out_n, n) matrix of the 1-D upfirdn of `n` samples (float32,
+    host): zero-insert, pad (a negative pad crops), correlate with the
+    flipped taps, keep every `down`-th sample."""
+    k = np.asarray(taps, np.float32)
+    eye = np.eye(n, dtype=np.float32)
+    upd = np.zeros((n, n * up), np.float32)
+    upd[:, ::up] = eye
+    if pad0 >= 0 and pad1 >= 0:
+        padded = np.pad(upd, ((0, 0), (pad0, pad1)))
+    else:
+        padded = upd[:, max(-pad0, 0): upd.shape[1] - max(-pad1, 0)]
+        padded = np.pad(padded, ((0, 0), (max(pad0, 0), max(pad1, 0))))
+    kf = k[::-1]
+    out_n = (padded.shape[1] - len(k)) // down + 1
+    op = np.zeros((n, out_n), np.float32)
+    for o in range(out_n):
+        op[:, o] = padded[:, o * down: o * down + len(k)] @ kf
+    return op.T
+
+
+def upfirdn2d_matmul(x: torch.Tensor, kernel_taps_y, kernel_taps_x,
+                     up: int = 1, down: int = 1, pad=(0, 0),
+                     gain: float = 1.0) -> torch.Tensor:
+    """Separable upfirdn of an NCHW map by two matmuls; the kernel is the
+    outer product of the 1-D taps times `gain`."""
+    _, _, h, w = x.shape
+
+    def matrix(n, taps):
+        return torch.from_numpy(_upfirdn1d_matrix(
+            n, tuple(float(t) for t in taps), up, down, pad[0], pad[1])
+        ).to(x.device)
+
+    out = torch.einsum("oh,nchw->ncow", matrix(h, kernel_taps_y), x)
+    out = torch.einsum("pw,ncow->ncop", matrix(w, kernel_taps_x), out)
+    return out * gain
+
+
+def separable_taps(kernel_1d) -> tuple:
+    """Normalized 1-D taps whose outer product is ``make_kernel(
+    kernel_1d)``."""
+    k = np.asarray(kernel_1d, np.float64)
+    k = k / k.sum()
+    return tuple(float(v) for v in k)
 
 
 def upsample2d(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:

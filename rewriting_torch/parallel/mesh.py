@@ -42,7 +42,6 @@ equal the single-device ones.
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,8 +51,9 @@ import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline, tree_map
 from ..models.stylegan2 import (_demod, _reference_noise, modconv_linear,
-                                noise_key)
+                                noise_key, stage_resolution)
 from ..ops import make_kernel
+from ..ops.precision import int8_active, tiered
 from ..ops.upconv_blur import fused_upconv_active
 from ..ops.upfirdn2d import apply_blur, blur_taps
 from . import comm
@@ -226,22 +226,6 @@ def vmapped_multi_edit(insert_fn, mesh: Mesh, axis: str = "data"):
 HALO = 1        # rows a band takes from each neighbour before a stage
 
 
-def stage_resolution(name: str) -> Optional[int]:
-    """The output resolution of a SeqStyleGAN2 stage, from its name; None
-    for the stages before the 4x4 input."""
-    m = re.match(r"^layer(\d+)\.", name)
-    if m:
-        n = int(m.group(1))
-        return 4 if n == 2 else 2 ** ((n + 3) // 2)
-    m = re.match(r"^to_rgb(\d+)\.", name)
-    if m:
-        return 2 ** (int(m.group(1)) + 1)
-    m = re.match(r"^up_rgb(\d+)$", name)
-    if m:
-        return 2 ** (int(m.group(1)) + 2)
-    return None
-
-
 class _Bands:
     """This rank's band of rows on the spatial axis, at each resolution
     where the bands are at least ``HALO`` rows tall."""
@@ -276,16 +260,23 @@ class _Bands:
         return F.pad(piece, (0, 0, top, bottom)) if top or bottom else piece
 
 
+def _check_not_int8() -> None:
+    if int8_active():
+        raise ValueError("the int8 tier's per-tensor activation scale needs "
+                         "the whole map: the spatial bands do not take it")
+
+
 def _band_conv(bands: _Bands, in_c: int, res: int):
     """The dconv of a 3x3 layer on this rank's band: its rows and one more
     on each side, padded in width only."""
     scale = 1.0 / math.sqrt(in_c * 9)
 
     def fn(params, d: DataBag) -> DataBag:
+        _check_not_int8()
         a, b = bands.span(res)
         x = bands.rows(d["fmap"], a - HALO, b + HALO, res)
         w = params["weight"][0] * scale
-        out = F.conv2d(x, w, padding=(0, 1))
+        out = tiered(F.conv2d, x, w, padding=(0, 1))
         return DataBag(d, fmap=out * _demod(w, d["style"])[:, :, None, None])
     return fn
 
@@ -298,6 +289,7 @@ def _band_upconv(bands: _Bands, in_c: int, res: int):
     scale = 1.0 / math.sqrt(in_c * 9)
 
     def fn(params, d: DataBag) -> DataBag:
+        _check_not_int8()
         a, b = bands.span(res)
         lo, hi = (a - 2) // 2, (b + 1) // 2
         x = bands.rows(d["fmap"], lo, hi + 1, res // 2)

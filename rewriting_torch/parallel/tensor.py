@@ -49,12 +49,14 @@ import torch
 
 from ..core import DataBag, Stage, StagePipeline
 from ..models.stylegan2 import (_equal_linear, _fused_lrelu_stage,
-                                _noise_inject, modconv_linear)
+                                _noise_inject, _rgb_product, modconv_linear,
+                                stage_resolution)
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
 from ..ops import upconv_blur as _kup
+from ..ops.precision import int8_active, tiered
 from . import comm
 from .comm import share
-from .mesh import Mesh, _check_device, _noise_rows, stage_resolution
+from .mesh import Mesh, _check_device, _noise_rows
 
 _LAYER_RE = re.compile(r"^layer(\d+)\.")
 _STYLE_RE = re.compile(r"^style\.(\d+)$")
@@ -196,7 +198,8 @@ def _tp_style(in_dim: int, lr_mul: float, row: bool, group: comm.Group):
         if not row:
             return DataBag(d, latent=_equal_linear(params, x, scale, lr_mul,
                                                    "fused_lrelu"))
-        out = comm.all_reduce(x @ (w * scale).t(), group)
+        out = comm.all_reduce(tiered(torch.matmul, x, (w * scale).t()),
+                              group)
         return DataBag(d, latent=fused_leaky_relu(out,
                                                   params["bias"] * lr_mul))
     return fn
@@ -220,7 +223,8 @@ def _tp_adain(group: comm.Group):
 def _row_demod(w: torch.Tensor, style: torch.Tensor, group: comm.Group):
     """rsqrt of the demodulation's sum over ALL input channels, from this
     rank's (O, I/n) share: the partial sums all-reduced first."""
-    sq = (style * style) @ torch.sum(w * w, dim=(-2, -1)).t()
+    sq = tiered(torch.matmul, style * style,
+                torch.sum(w * w, dim=(-2, -1)).t())
     return torch.rsqrt(comm.all_reduce(sq, group) + 1e-8)
 
 
@@ -235,6 +239,10 @@ def _tp_row_dconv(in_c: int, out_c: int, upsample: bool, res, fast: bool,
     kf = tuple(float(v) for v in (k / k.sum()) * 2.0)
 
     def fn(params, d: DataBag) -> DataBag:
+        if int8_active():
+            raise ValueError("the int8 tier's per-tensor activation scale "
+                             "needs the whole map: tp's row layers do not "
+                             "take it")
         w = params["weight"][0] * scale
         x = d["fmap"]
         if fast and upsample and _kup.fused_upconv_active(in_c, out_c, res):
@@ -258,7 +266,7 @@ def _tp_to_rgb(in_c: int, style_dim: int, skip: bool, blur_kernel,
         style = _equal_linear(params["modulation"], d["style"], mod_scale,
                               1.0, None)
         x = _match(d["fmap"], w.shape[1], group) * style[:, :, None, None]
-        out = torch.einsum("bchw,oc->bohw", x, w)
+        out = tiered(_rgb_product, x, w)
         if w.shape[1] != in_c:
             out = comm.all_reduce(out, group)
         out = out + params["bias"][None, :, None, None]
@@ -278,7 +286,13 @@ def tp_pipeline(model, group: comm.Group, fast: bool = True
     n = group.size
     specs = {name: _group_specs(name, shapes, n, "tp")
              for name, shapes in param_shapes(model).items()}
+    # pipeline_fast's s2d tail runs its seq stages under tp: the shards'
+    # partial sums are all-reduced on NCHW maps
     base = model.pipeline_fast if fast else model.pipeline
+    base = StagePipeline([seq if fast and seq.name in model._s2d_names
+                          else s
+                          for s, seq in zip(base.stages,
+                                            model.pipeline.stages)])
     overrides = {}
     for name, spec in model._param_specs.items():
         if spec[0] == "linear" and _STYLE_RE.match(name):

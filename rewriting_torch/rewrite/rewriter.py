@@ -137,16 +137,21 @@ class GanRewriter:
         self.c_matrix = self.collect_2nd_moment()
         self.zca_matrix = solve.zca_from_cov(self.c_matrix)
 
-    # -- the three sub-pipelines, without autograd ---------------------------
+    # -- the three sub-pipelines, without autograd, at the global tier: keys,
+    # goals, statistics, solves and the rewriter's renders suspend any
+    # installed sampling schedule (JAX package rewriter.py:88-98) ----------
     @torch.no_grad()
+    @precision.suspend_schedule_in
     def _context(self, params, bag: DataBag) -> DataBag:
         return self.context_pipe(params, bag)
 
     @torch.no_grad()
+    @precision.suspend_schedule_in
     def _target(self, params, bag: DataBag) -> DataBag:
         return self.target_pipe(params, bag)
 
     @torch.no_grad()
+    @precision.suspend_schedule_in
     def _render(self, params, bag: DataBag) -> DataBag:
         return self.rendering_pipe(params, bag)
 

@@ -4,8 +4,9 @@ BatchNorm folded into its conv).
 The port's counterpart of the JAX package's ``segment/resnet.py``:
 
 - resnet50 (CSAIL variant): a deep 3x3 stem to 128 channels, bottleneck
-  layers [3, 4, 6, 3]; the four stage features (reference
-  utils/upsegmodel/resnet.py:103-150, encoder wrapper models.py:230-248);
+  layers [3, 4, 6, 3] ([3, 4, 23, 3] for resnet101, ``R101_LAYERS``); the
+  four stage features (reference utils/upsegmodel/resnet.py:103-150,
+  encoder wrapper models.py:230-248);
 - resnet18 (torchvision's 7x7 stem): feat8, feat16, feat32 for BiSeNet
   (reference metrics/face-parsing.PyTorch/resnet.py:58-78).
 
@@ -78,6 +79,7 @@ def in_params(params: Dict):
 # -- resnet50 (CSAIL deep stem) ------------------------------------------------
 
 R50_LAYERS = [3, 4, 6, 3]
+R101_LAYERS = [3, 4, 23, 3]
 R50_PLANES = [64, 128, 256, 512]
 BOTTLENECK = ("conv1", "conv2", "conv3")
 BASIC = ("conv1", "conv2")
@@ -111,11 +113,14 @@ def init_deep_stem(gen) -> Dict:
             "conv3": init_conv(gen, 128, 64, 3)}
 
 
-def init_resnet50(seed=0) -> Dict:
+def init_resnet50(seed=0, layers=None) -> Dict:
+    """Seeded params of the deep-stem bottleneck resnet: 50 by default,
+    101 with ``layers=R101_LAYERS``; CPU tensors."""
     gen = generator(seed)
     params = init_deep_stem(gen)
     in_c = 128
-    for li, (nblocks, planes) in enumerate(zip(R50_LAYERS, R50_PLANES)):
+    for li, (nblocks, planes) in enumerate(zip(layers or R50_LAYERS,
+                                               R50_PLANES)):
         blocks = []
         for bi in range(nblocks):
             p = {"conv1": init_conv(gen, planes, in_c, 1),
@@ -129,16 +134,17 @@ def init_resnet50(seed=0) -> Dict:
     return params
 
 
-def resnet50_from_torch(sd: Dict, prefix: str = "") -> Dict:
-    """A CSAIL deep-stem bottleneck resnet50's state dict, BatchNorms
-    folded."""
-    return params_from_layout(sd, layout(prefix, R50_LAYERS, BOTTLENECK,
-                                         True, in_state_dict(sd, prefix)))
+def resnet50_from_torch(sd: Dict, prefix: str = "", layers=None) -> Dict:
+    """A CSAIL deep-stem bottleneck resnet's state dict, BatchNorms folded;
+    `layers` the depth (resnet50 by default, ``R101_LAYERS``)."""
+    return params_from_layout(sd, layout(prefix, layers or R50_LAYERS,
+                                         BOTTLENECK, True,
+                                         in_state_dict(sd, prefix)))
 
 
-def resnet50_to_torch(params: Dict, prefix: str = "") -> Dict:
+def resnet50_to_torch(params: Dict, prefix: str = "", layers=None) -> Dict:
     return state_dict_from_layout(params, layout(
-        prefix, R50_LAYERS, BOTTLENECK, True, in_params(params)))
+        prefix, layers or R50_LAYERS, BOTTLENECK, True, in_params(params)))
 
 
 # -- resnet18 (7x7 stem) for BiSeNet -----------------------------------------

@@ -1,16 +1,19 @@
-"""The released texture and colour segmenters: a dilated deep-stem
-ResNet-18 with a PPM decoder, and the single-category segmenter around
-it, on NCHW tensors.
+"""The semantic segmentation zoo: dilated ResNet, MobileNetV2 and
+ResNeXt encoders, PPM and C1 decoders, and the single-category segmenter
+around them, on NCHW tensors.
 
-The port's counterpart of the part of the JAX package's
-``segment/semantic.py`` that ``load_segmenter``'s 'x' and 'c' flags run
-(reference utils/segmodel/models.py: ResnetDilated :209, PPM :390,
-PPMDeepsup :438; utils/segmenter.py:392 SemanticSegmenter): the encoder
-``resnet18dilated``, the ``ppm`` and ``ppm_deepsup`` decoders (the two are
-one at inference), multi-resolution voting and argmax labels.  The JAX
-package's other encoders (resnet50/101 dilated, resnet101, MobileNetV2,
-ResNeXt101) and its C1 decoders have no caller there; they are not ported
-yet, and asking for one raises ``NotImplementedError``.
+The port's counterpart of the JAX package's ``segment/semantic.py``
+(reference utils/segmodel/models.py: ResnetDilated :209,
+MobileNetV2Dilated :272, C1DeepSup :327, C1 :364, PPM :390, PPMDeepsup
+:438; segmodel/resnext.py; utils/segmenter.py:392 SemanticSegmenter):
+the encoders ``resnet18dilated`` (the released texture and colour models
+that ``load_segmenter``'s 'x' and 'c' flags load), ``resnet50dilated``
+(the class default), ``resnet101dilated``, ``resnet101`` and
+``resnext101`` (both undilated, as the reference wraps them in its plain
+Resnet) and ``mobilenetv2dilated``; the decoders ``ppm``,
+``ppm_deepsup``, ``c1`` and ``c1_deepsup`` (each deep-supervision variant
+is its plain one at inference); multi-resolution voting and argmax
+labels.
 """
 
 from __future__ import annotations
@@ -23,16 +26,13 @@ import torch.nn.functional as F
 from ..utils.device import resolve_device
 from .nn import (adaptive_avg_pool, conv, generator, init_conv,
                  params_from_layout, resize_bilinear, state_dict_from_layout)
-from .resnet import (BASIC, R18_LAYERS, R18_PLANES, deep_stem, in_params,
-                     in_state_dict, init_deep_stem, layout)
+from .resnet import (BASIC, BOTTLENECK, R18_LAYERS, R18_PLANES, R50_LAYERS,
+                     R101_LAYERS, deep_stem, in_params, in_state_dict,
+                     init_deep_stem, init_resnet50, layout)
 from .segmenter import BaseSegmenter, as_images, to_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-NOT_PORTED = ("the port's SemanticSegmenter runs arch='resnet18dilated' "
-              "with decoder 'ppm' or 'ppm_deepsup' (what load_segmenter "
-              "loads); the JAX package's other encoders and C1 decoders "
-              "are ROADMAP queue 1 item 11")
 
 
 def _layer_dilations(dilate_scale: int):
@@ -44,6 +44,38 @@ def _layer_dilations(dilate_scale: int):
     if dilate_scale == 16:
         return [1, 1, 1, 2], [1, 2, 2, 1]
     return [1, 1, 1, 1], [1, 2, 2, 2]
+
+
+def _dilated_bottleneck(p: Dict, x, stride: int, dilate: int,
+                        first_block: bool, groups: int = 1):
+    # conv2 is the (formerly) strided 3x3; groups > 1 for ResNeXt's
+    # GroupBottleneck (reference segmodel/resnext.py:32-68)
+    d2 = max(dilate // 2, 1) if first_block else dilate
+    out = conv(x, p["conv1"], relu=True)
+    out = conv(out, p["conv2"], stride=stride, padding=d2, dilation=d2,
+               relu=True, groups=groups)
+    out = conv(out, p["conv3"])
+    res = conv(x, p["downsample"], stride=stride) if "downsample" in p \
+        else x
+    return F.relu(out + res)
+
+
+def resnet50_dilated_features(params: Dict, x, dilate_scale: int = 8,
+                              layers=None) -> List:
+    """The CSAIL deep-stem bottleneck resnet (50, or 101 with
+    ``layers=R101_LAYERS``), layer3/layer4 dilated to output stride
+    `dilate_scale` (reference ResnetDilated, segmodel models.py:209-270);
+    32 is undilated."""
+    x = deep_stem(params, x)
+    dilations, strides = _layer_dilations(dilate_scale)
+    outs = []
+    for li, nblocks in enumerate(layers or R50_LAYERS):
+        for bi in range(nblocks):
+            stride = strides[li] if bi == 0 else 1
+            x = _dilated_bottleneck(params[f"layer{li + 1}"][bi], x,
+                                    stride, dilations[li], bi == 0)
+        outs.append(x)
+    return outs
 
 
 def _dilated_basic_block(p: Dict, x, stride: int, dilate: int,
@@ -103,6 +135,169 @@ def resnet18_deepstem_to_torch(params: Dict, prefix: str = "") -> Dict:
         prefix, R18_LAYERS, BASIC, True, in_params(params)))
 
 
+# -- MobileNetV2Dilated (reference segmodel/models.py:272-325 over the
+# vendored mobilenet.py InvertedResidual stack) ------------------------------
+
+# (expand ratio t, out channels c, repeats n, stride s): mobilenet.py:93-101
+MBV2_SETTINGS = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                 (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+MBV2_DOWN_IDX = [2, 4, 7, 14]  # features after which a stage ends (:283)
+
+
+def _mbv2_block_plan(dilate_scale: int) -> List[Dict]:
+    """Each block's expand ratio, widths, depthwise stride and dilation and
+    residual, after the reference's _nostride_dilate (models.py:284-311):
+    features[7:14] dilate 2 and features[14:] dilate 4 at scale 8,
+    features[14:] dilate 2 at scale 16.  The residual is decided by the
+    ORIGINAL stride (mobilenet.py:53)."""
+    plan = []
+    in_c = 32
+    idx = 1
+    for t, c, n, s in MBV2_SETTINGS:
+        for bi in range(n):
+            stride = s if bi == 0 else 1
+            if dilate_scale == 8:
+                dilate = 2 if 7 <= idx < 14 else (4 if idx >= 14 else None)
+            elif dilate_scale == 16:
+                dilate = 2 if idx >= 14 else None
+            else:
+                dilate = None
+            if dilate is not None:
+                dw_stride = 1
+                dw_dil = dilate // 2 if stride == 2 else dilate
+            else:
+                dw_stride, dw_dil = stride, 1
+            plan.append(dict(t=t, in_c=in_c, out_c=c, dw_stride=dw_stride,
+                             dw_dil=dw_dil,
+                             residual=(stride == 1 and in_c == c)))
+            in_c = c
+            idx += 1
+    return plan
+
+
+def mobilenetv2_dilated_features(params: Dict, x, dilate_scale: int = 8
+                                 ) -> List:
+    """The reference MobileNetV2Dilated with return_feature_maps
+    (models.py:313-325): the map after each stage's last block, and the
+    last."""
+    x = conv(x, params["stem"], stride=2, padding=1, relu6=True)
+    outs = []
+    for idx, (p, cfg) in enumerate(zip(params["blocks"],
+                                       _mbv2_block_plan(dilate_scale)),
+                                   start=1):
+        h = x
+        if cfg["t"] != 1:
+            h = conv(h, p["expand"], relu6=True)
+        h = conv(h, p["dw"], stride=cfg["dw_stride"], padding=cfg["dw_dil"],
+                 dilation=cfg["dw_dil"], groups=cfg["in_c"] * cfg["t"],
+                 relu6=True)
+        h = conv(h, p["project"])
+        x = x + h if cfg["residual"] else h
+        if idx in MBV2_DOWN_IDX:
+            outs.append(x)
+    outs.append(x)
+    return outs
+
+
+def init_mobilenetv2(seed=0) -> Dict:
+    """Seeded params of MobileNetV2Dilated; CPU tensors."""
+    gen = generator(seed)
+    params: Dict = {"stem": init_conv(gen, 32, 3, 3)}
+    blocks = []
+    for cfg in _mbv2_block_plan(8):
+        hidden = cfg["in_c"] * cfg["t"]
+        p = {}
+        if cfg["t"] != 1:
+            p["expand"] = init_conv(gen, hidden, cfg["in_c"], 1)
+        p["dw"] = init_conv(gen, hidden, 1, 3)
+        p["project"] = init_conv(gen, cfg["out_c"], hidden, 1)
+        blocks.append(p)
+    params["blocks"] = blocks
+    return params
+
+
+def _mbv2_layout(prefix: str) -> List:
+    """features.0 the stem, features.1 .. 17 the InvertedResiduals: (dw,
+    bn, relu6, 1x1, bn), or with expansion (1x1, bn, relu6, dw, bn, relu6,
+    1x1, bn); MobileNetV2Dilated drops the last 1x1 conv, features.18."""
+    rows = [(("stem",), prefix + "0.0", prefix + "0.1")]
+    for idx, cfg in enumerate(_mbv2_block_plan(8), start=1):
+        base = f"{prefix}{idx}.conv."
+        names = (("dw", "0", "1"), ("project", "3", "4")) if cfg["t"] == 1 \
+            else (("expand", "0", "1"), ("dw", "3", "4"),
+                  ("project", "6", "7"))
+        rows += [(("blocks", idx - 1, n), base + c, base + b)
+                 for n, c, b in names]
+    return rows
+
+
+def mobilenetv2_from_torch(sd: Dict, prefix: str = "features.") -> Dict:
+    """The vendored MobileNetV2's state dict (mobilenet.py:30-119),
+    BatchNorms folded."""
+    return params_from_layout(sd, _mbv2_layout(prefix))
+
+
+def mobilenetv2_to_torch(params: Dict, prefix: str = "features.") -> Dict:
+    return state_dict_from_layout(params, _mbv2_layout(prefix))
+
+
+# -- ResNeXt101 (reference segmodel/resnext.py: GroupBottleneck, expansion
+# 2, 32 groups, deep stem; undilated in the reference's Resnet wrapper,
+# models.py:1043-1045) --------------------------------------------------------
+
+RNX101_LAYERS = [3, 4, 23, 3]
+RNX101_PLANES = [128, 256, 512, 1024]
+RNX_GROUPS = 32
+
+
+def resnext101_features(params: Dict, x, dilate_scale: int = 32) -> List:
+    """The deep-stem ResNeXt101; dilate_scale 8 or 16 dilates as the
+    resnets do, 32 is undilated."""
+    x = deep_stem(params, x)
+    dilations, strides = _layer_dilations(dilate_scale)
+    outs = []
+    for li, nblocks in enumerate(RNX101_LAYERS):
+        for bi in range(nblocks):
+            stride = strides[li] if bi == 0 else 1
+            x = _dilated_bottleneck(params[f"layer{li + 1}"][bi], x,
+                                    stride, dilations[li], bi == 0,
+                                    groups=RNX_GROUPS)
+        outs.append(x)
+    return outs
+
+
+def init_resnext101(seed=0) -> Dict:
+    """Seeded params of the deep-stem ResNeXt101; CPU tensors."""
+    gen = generator(seed)
+    params = init_deep_stem(gen)
+    in_c = 128
+    for li, (nblocks, planes) in enumerate(zip(RNX101_LAYERS,
+                                               RNX101_PLANES)):
+        blocks = []
+        for bi in range(nblocks):
+            p = {"conv1": init_conv(gen, planes, in_c, 1),
+                 "conv2": init_conv(gen, planes, planes // RNX_GROUPS, 3,
+                                    scale=(planes * 9) ** -0.5),
+                 "conv3": init_conv(gen, planes * 2, planes, 1)}
+            if bi == 0:
+                p["downsample"] = init_conv(gen, planes * 2, in_c, 1)
+            blocks.append(p)
+            in_c = planes * 2
+        params[f"layer{li + 1}"] = blocks
+    return params
+
+
+def resnext101_from_torch(sd: Dict, prefix: str = "") -> Dict:
+    """A ResNeXt101 state dict, BatchNorms folded (the resnets' layout)."""
+    return params_from_layout(sd, layout(prefix, RNX101_LAYERS, BOTTLENECK,
+                                         True, in_state_dict(sd, prefix)))
+
+
+def resnext101_to_torch(params: Dict, prefix: str = "") -> Dict:
+    return state_dict_from_layout(params, layout(
+        prefix, RNX101_LAYERS, BOTTLENECK, True, in_params(params)))
+
+
 class PPMDecoder:
     """The pyramid pooling decoder (reference PPM, segmodel
     models.py:390-437): conv5 pooled at scales 1, 2, 3 and 6, 1x1 convs,
@@ -157,26 +352,92 @@ class PPMDeepsupDecoder(PPMDecoder):
     layout, so its checkpoint's deepsup keys go unread."""
 
 
+class C1Decoder:
+    """One 3x3 conv and the class head (reference C1, segmodel
+    models.py:364-388); softmax at `seg_size`."""
+
+    def __init__(self, num_class: int, fc_dim: int = 2048):
+        self.num_class = num_class
+        self.fc_dim = fc_dim
+
+    def __call__(self, params: Dict, conv_out, seg_size=None):
+        return torch.softmax(self.logits(params, conv_out, seg_size), dim=1)
+
+    def logits(self, params: Dict, conv_out, seg_size=None):
+        """The class scores before their softmax, at `seg_size`."""
+        x = conv(conv_out[-1], params["cbr"], padding=1, relu=True)
+        x = conv(x, params["conv_last"])
+        return x if seg_size is None else resize_bilinear(x, seg_size)
+
+    def init_params(self, seed=0) -> Dict:
+        gen = generator(seed)
+        return {"cbr": init_conv(gen, self.fc_dim // 4, self.fc_dim, 3),
+                "conv_last": init_conv(gen, self.num_class,
+                                       self.fc_dim // 4, 1)}
+
+    def _layout(self):
+        return [(("cbr",), "cbr.0", "cbr.1"),
+                (("conv_last",), "conv_last", None)]
+
+    def params_from_torch(self, sd: Dict) -> Dict:
+        return params_from_layout(sd, self._layout())
+
+    def params_to_torch(self, params: Dict) -> Dict:
+        return state_dict_from_layout(params, self._layout())
+
+
+class C1DeepSupDecoder(C1Decoder):
+    """C1DeepSup (reference segmodel models.py:327-362): C1 at inference
+    (the deep-supervision branch runs only in training), same keys."""
+
+
+def _resnet101_dilated(params, x, dilate_scale):
+    return resnet50_dilated_features(params, x, dilate_scale,
+                                     layers=R101_LAYERS)
+
+
+def _init_resnet101(seed):
+    return init_resnet50(seed, layers=R101_LAYERS)
+
+
 class SemanticSegmenter(BaseSegmenter):
     """A single-category segmenter (reference SemanticSegmenter,
     utils/segmenter.py:392): input normalized as the model's
     ``imageformat`` says, multi-resolution softmax voting, argmax labels
     in channel 0.  On `device` (default ``cuda``); ``params=None`` draws
-    seeded weights."""
+    seeded weights.  ``resnet101`` and ``resnext101`` run undilated
+    (dilate_scale 32), as the reference wraps them in its plain Resnet."""
 
-    FC_DIMS = {"resnet18dilated": 512}
-    DECODERS = {"ppm": PPMDecoder, "ppm_deepsup": PPMDeepsupDecoder}
+    FC_DIMS = {"resnet50dilated": 2048, "resnet18dilated": 512,
+               "resnet101dilated": 2048, "resnet101": 2048,
+               "mobilenetv2dilated": 320, "resnext101": 2048}
+    DECODERS = {"ppm": PPMDecoder, "ppm_deepsup": PPMDeepsupDecoder,
+                "c1": C1Decoder, "c1_deepsup": C1DeepSupDecoder}
+    # arch -> (features(params, x, dilate_scale), init(seed))
+    ENCODERS = {
+        "resnet50dilated": (resnet50_dilated_features, init_resnet50),
+        "resnet101dilated": (_resnet101_dilated, _init_resnet101),
+        "resnet101": (_resnet101_dilated, _init_resnet101),
+        "resnet18dilated": (resnet18_dilated_features,
+                            init_resnet18_deepstem),
+        "mobilenetv2dilated": (mobilenetv2_dilated_features,
+                               init_mobilenetv2),
+        "resnext101": (resnext101_features, init_resnext101),
+    }
 
     def __init__(self, params: Optional[Dict], labels: Sequence[str],
                  decoder="ppm", segsizes=None, dilate_scale: int = 8,
                  arch: str = "resnet50dilated", category: str = "object",
                  imageformat: Optional[Dict] = None, device=None):
         if arch not in self.FC_DIMS or decoder not in self.DECODERS:
-            raise NotImplementedError(
-                f"arch {arch!r}, decoder {decoder!r}: {NOT_PORTED}")
+            raise ValueError(f"arch {arch!r}, decoder {decoder!r}: one of "
+                             f"{sorted(self.FC_DIMS)} and "
+                             f"{sorted(self.DECODERS)}")
         self.device = resolve_device(device)
         self.labels = list(labels)
         self.segsizes = segsizes or [256]
+        if arch in ("resnext101", "resnet101"):
+            dilate_scale = 32
         self.dilate_scale = dilate_scale
         self.arch = arch
         self.category = category
@@ -188,7 +449,7 @@ class SemanticSegmenter(BaseSegmenter):
             "byteorder": "RGB", "mean": list(IMAGENET_MEAN),
             "stdev": list(IMAGENET_STD)}
         if params is None:
-            params = {"encoder": init_resnet18_deepstem(0),
+            params = {"encoder": self.ENCODERS[arch][1](0),
                       "decoder": self.decoder.init_params(1)}
         self.params = to_device(params, self.device)
 
@@ -228,8 +489,8 @@ class SemanticSegmenter(BaseSegmenter):
             for s in self.segsizes:
                 resized = x if (s, s) == (h, w) else \
                     adaptive_avg_pool(x, (s, s))
-                feats = resnet18_dilated_features(self.params["encoder"],
-                                                  resized, self.dilate_scale)
+                feats = self.ENCODERS[self.arch][0](
+                    self.params["encoder"], resized, self.dilate_scale)
                 pred = pred + self.decoder(self.params["decoder"], feats,
                                            seg_size=seg_shape)
         return pred

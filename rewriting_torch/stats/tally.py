@@ -169,7 +169,8 @@ def cached_second_moment(rows_fn, zs: np.ndarray, batch_size: int, device,
     """:func:`tally_second_moment` with the npz cache keyed on `args`.  On
     a mesh every rank decides from the same file (a barrier first, so no
     rank reads while another writes), the ranks tally together, and rank
-    0 alone writes the cache; every rank returns the all-reduced state."""
+    0 alone writes the cache, then a second barrier: every rank returns
+    the all-reduced state with the whole cache file on disk."""
     if mesh is not None:
         comm.barrier()
     cached = load_cached_state(cachefile, args)
@@ -178,6 +179,8 @@ def cached_second_moment(rows_fn, zs: np.ndarray, batch_size: int, device,
     r = tally_second_moment(rows_fn, zs, batch_size, device, mesh, axis)
     if mesh is None or dist.get_rank() == 0:
         save_cached_state(cachefile, r, args)
+    if mesh is not None:
+        comm.barrier()
     return r
 
 

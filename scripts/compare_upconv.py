@@ -180,7 +180,7 @@ def main() -> int:
                     rc = fn(x.data_ptr(), wp.data_ptr(),
                             y_var.data_ptr(), b, i, o, h, h,
                             taps4.ctypes.data, demod.data_ptr(),
-                            noise.data_ptr(), 0, bias.data_ptr(), *tile,
+                            noise.data_ptr(), 0, bias.data_ptr(), *tile, 0,
                             torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -173,10 +173,18 @@ def test_colour_segmenter_matches_jax(colour):
 
 
 def test_semantic_segmenter_refuses_what_is_not_ported():
-    for kw in ({}, {"arch": "mobilenetv2dilated"},
-               {"arch": "resnet18dilated", "decoder": "c1"}):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    """An encoder or decoder that neither package has is refused, naming
+    the choices; every one of the JAX package's is taken (the new ones are
+    held in tests/test_torch_semantic_archs.py)."""
+    for kw in ({"arch": "vgg16"},
+               {"arch": "resnet18dilated", "decoder": "upernet"}):
+        with pytest.raises(ValueError, match="resnet18dilated"):
             semantic.SemanticSegmenter(None, COLOURS, device="cpu", **kw)
+    assert set(semantic.SemanticSegmenter.FC_DIMS) == {
+        "resnet50dilated", "resnet18dilated", "resnet101dilated",
+        "resnet101", "mobilenetv2dilated", "resnext101"}
+    assert set(semantic.SemanticSegmenter.DECODERS) == {
+        "ppm", "ppm_deepsup", "c1", "c1_deepsup"}
     seg = semantic.SemanticSegmenter(None, ["-", "a", "b"],
                                      arch="resnet18dilated",
                                      decoder="ppm_deepsup", segsizes=[32],

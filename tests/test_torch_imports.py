@@ -71,6 +71,8 @@ SLICE10 = ("serve", "metrics.seg_stats", "metrics.seg_correct_mod",
            "ui.paintwidget", "ui.rewriteapp")
 SLICE11 = ("parallel", "parallel.comm", "parallel.mesh", "parallel.tensor",
            "parallel.pipeline", "parallel.dryrun")
+SLICE12 = ("ops.quant", "ops.precision", "models.stylegan2",
+           "models.proggan", "segment.semantic")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -80,7 +82,8 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     first, names = proc.stdout.splitlines()
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
-    for name in SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10 + SLICE11:
+    for name in (SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10 + SLICE11
+                 + SLICE12):
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -247,6 +250,36 @@ def test_slice11_entry_points_raise_without_cuda(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--toy", "--port", "0"])
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("device", [None, "cuda"], ids=["default", "cuda"])
+def test_slice12_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
+    """The segmenter's other encoders and decoders and the 1024 models of
+    the zoo default to the card and raise without CUDA; so does the
+    smoke script of phases 34-36."""
+    kw = {} if device is None else {"device": device}
+    for arch, decoder in chip_smoke.SEG_ARCHS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SemanticSegmenter(None, ["a", "b"], arch=arch, decoder=decoder,
+                              **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SeqStyleGAN2(1024, style_dim=16, n_mlp=1, s2d_tail_max_c=16, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProgressiveGenerator(resolution=1024, **kw)
+    path = tmp_path / "stylegan2_faces.pt"
+    torch.save({}, path)     # the model raises before it reads a key
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.load_seq_stylegan("faces", path=str(path), **kw)
+
+
+def test_smoke_slice12_fails_without_cuda(no_cuda, capsys):
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import smoke_slice12
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    assert smoke_slice12.main() != 0
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, capsys):

@@ -103,9 +103,9 @@ calls = []
 plain = kup.upconv_blur_reference
 
 
-def recorded(x, wf, kf, demod=None, noise=None, bias=None):
+def recorded(x, wf, kf, demod=None, noise=None, bias=None, tier="highest"):
     calls.append((x.shape[1], demod is not None))
-    return plain(x, wf, kf, demod, noise, bias)
+    return plain(x, wf, kf, demod, noise, bias, tier)
 
 
 kup.upconv_blur_reference = recorded

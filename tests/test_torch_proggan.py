@@ -107,13 +107,19 @@ def test_random_init_and_jax_params_carry_across():
 
 
 def test_pipeline_fast_is_pipeline():
-    """The port runs the seq stages where the JAX package's s2d tail would
-    engage (>= 512 px, <= 32 channels); below that the two agree too."""
+    """Where no block qualifies for the s2d tail (< 512 px or > 32
+    channels), pipeline_fast is the seq pipeline itself and the two
+    agree bit for bit; where the tail engages it is another pipeline
+    (held in tests/test_torch_s2d.py)."""
     model = proggan.ProgressiveGenerator(sizes=[8, 8, 4], device="cpu")
     assert model.pipeline_fast is model.pipeline
     params = model.init_params(seed=2)
     z = standard_z_sample(2, 8)
     assert torch.equal(model(params, z), model(params, z, fast=False))
+    tail = proggan.ProgressiveGenerator(
+        sizes=[16, 16, 16, 16, 16, 16, 16, 16, 8], device="cpu")
+    assert tail.pipeline_fast is not tail.pipeline
+    assert tail._fast_overrides
 
 
 def test_z_prefix_stability():
