@@ -5,7 +5,7 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``rewriting_torch/csrc`` with nvcc
+It builds the CUDA kernels from ``rewriting_torch/csrc`` with nvcc
 (one process per source, all at once), holds each kernel against its
 plain PyTorch version on the card at the shapes its path gives it, compares
 a full-width church-256 forward on the card with the same forward on the
@@ -115,7 +115,8 @@ set to 0 just before it and read just after:
   ``pipeline_fast`` with its s2d tail, ``fused=True`` (K2 after the
   subpixel up-convs) and K1 on at every layer against the seq pipeline;
   the recommended schedule, an int8 schedule (``_int_mm`` at the dconvs)
-  and a "default" schedule from 256 px with K1 on (its one-pass bf16 mode)
+  and a "default" schedule from 256 px with K1 on (its one-pass bf16
+  kernel, ``csrc/upconv_blur_bf16.cu``)
   against "highest", PSNR beside a floor, images/s of each; K1's bf16
   mode against its plain version and timed; an edit bit for bit with and
   without an int8 schedule on every stage; the RGB skip upsample's two
@@ -295,14 +296,16 @@ def blur_bound_ms(x_shape, y_shape, k: int):
     return bound_ms(4.0 * (nx + y_numel), 2.0 * k * k * y_numel)
 
 
-def _upconv_counts(b, i, h, o):
-    """K1 with its epilogue: (bytes, MACs of the conv, outputs).  x, the
-    weights, demod, noise and bias are read once, the output written once;
-    the conv does 9 MACs per (input pixel, I, O)."""
-    outputs = b * o * 4 * h * h
-    nbytes = 4.0 * (b * i * h * h + 9 * i * o + b * o + 4 * h * h + o
+def _upconv_counts(b, i, h, o, w=None):
+    """K1 with its epilogue on (b, i, h, w) maps (w = h by default):
+    (bytes, MACs of the conv, outputs).  x, the weights, demod, noise and
+    bias are read once, the output written once; the conv does 9 MACs per
+    (input pixel, I, O)."""
+    w = h if w is None else w
+    outputs = b * o * 4 * h * w
+    nbytes = 4.0 * (b * i * h * w + 9 * i * o + b * o + 4 * h * w + o
                     + outputs)
-    return nbytes, 9.0 * i * o * h * h * b, outputs
+    return nbytes, 9.0 * i * o * h * w * b, outputs
 
 
 def upconv_bound_ms(b, i, h, o):
@@ -3692,7 +3695,12 @@ def check_multi_device(model, params, clean_dir: str, c8, r2m7, losses16,
 
 # phases 34-36: the 1024 models and the segmenters no caller sets
 FACES_BATCH = 8
-FACES_UPCONV_SHAPES = ((8, 128, 256, 64), (16, 256, 128, 128))
+# (B, I, H, W, O) of K1's one-pass mode: phase 34's two launches under
+# "default" from 256 px, the timed (16,256,128,128)->128, a small map and
+# a ragged one
+BF16_UPCONV_SHAPES = ((8, 256, 128, 128, 128), (8, 128, 256, 256, 64),
+                      (16, 512, 8, 8, 512), (3, 72, 9, 30, 40),
+                      (16, 256, 128, 128, 128))
 BF16_FLOPS_PER_S = 989e12
 BF16_UPCONV_RTOL = 1e-4    # K1 one-pass vs its plain version, of max |plain|
 # PSNR floors against "highest" of the faces-1024 and celebhq-1024 renders
@@ -3707,11 +3715,11 @@ SEG_ARCHS = (("resnet50dilated", "ppm_deepsup"), ("resnet101dilated", "c1"),
              ("resnext101", "ppm_deepsup"), ("resnet18dilated", "c1"))
 
 
-def upconv_bf16_bound_ms(b, i, h, o):
+def upconv_bf16_bound_ms(b, i, h, o, w=None):
     """K1's least time in its one-pass bf16 mode: 2 * MACs at the bf16
     dense peak, plus the blur and epilogue at the fp32 peak; or the
     bytes (fp32 in and out), whichever is larger."""
-    nbytes, macs, outputs = _upconv_counts(b, i, h, o)
+    nbytes, macs, outputs = _upconv_counts(b, i, h, o, w)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (2.0 * macs / BF16_FLOPS_PER_S
               + (2.0 * 8 + 5) * outputs / FP32_FLOPS_PER_S) * 1e3
@@ -3743,25 +3751,35 @@ def images_per_s(torch, fn, batch: int, runs: int = 3) -> float:
 
 
 def check_upconv_bf16(torch, gen) -> dict:
-    """K1's one-pass bf16 mode against its plain version (x and the taps
-    rounded to bf16, the rest fp32) at faces-1024's 512 layer and at
-    (16,256,128,128)->128, with and without the epilogue; times of the
-    mode, its plain version, the 3xTF32 mode and the library
-    ``conv_transpose2d`` in bf16 (the 6x6 composite kernel) at each."""
+    """K1's one-pass bf16 kernel (``csrc/upconv_blur_bf16.cu``) against its
+    plain version (x and the taps rounded to bf16, the rest fp32) at
+    ``BF16_UPCONV_SHAPES``, with and without the epilogue; two launches
+    bit for bit; times of the kernel, its plain version, the 3xTF32 kernel
+    and the library ``conv_transpose2d`` in bf16 (the 6x6 composite
+    kernel) at each, beside the bound; the tiles and the build's ptxas
+    line."""
+    from rewriting_torch.ops import _build
     from rewriting_torch.ops import upconv_blur as kup
 
+    ptxas = [line.strip() for line in
+             _build.build_logs.get("upconv_blur_bf16", "").splitlines()
+             if "registers" in line or "spill" in line or "wgmma" in line]
+    for line in ptxas:
+        print("K1 one-pass ptxas -v:", line)
     kf = tuple(float(v) for v in (0.25, 0.75, 0.75, 0.25))
     rows, max_err, max_rel = [], 0.0, 0.0
-    for b, i, h, o in FACES_UPCONV_SHAPES:
-        x = torch.randn((b, i, h, h), generator=gen, device="cuda")
+    for b, i, h, w, o in BF16_UPCONV_SHAPES:
+        x = torch.randn((b, i, h, w), generator=gen, device="cuda")
         wf = torch.randn((o, i, 3, 3), generator=gen,
                          device="cuda") / (3.0 * i ** 0.5)
         epi = (torch.rand((b, o), generator=gen, device="cuda") + 0.5,
-               torch.randn((1, 1, 2 * h, 2 * h), generator=gen,
+               torch.randn((1, 1, 2 * h, 2 * w), generator=gen,
                            device="cuda"),
                torch.randn((o,), generator=gen, device="cuda"))
+        tile = kup._plan_bf16(b, i, h, w, o)
         for label, extra in (("no epilogue", ()), ("epilogue", epi)):
             got = kup.upconv_blur_cuda(x, wf, kf, *extra, tier="default")
+            again = kup.upconv_blur_cuda(x, wf, kf, *extra, tier="default")
             want = kup.upconv_blur_reference(x, wf, kf, *extra,
                                              tier="default")
             exact = kup.upconv_blur_reference(x, wf, kf, *extra)
@@ -3769,15 +3787,21 @@ def check_upconv_bf16(torch, gen) -> dict:
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
             rounding = rel_diff(want, exact)
+            same = bool(torch.equal(got, again))
             max_err, max_rel = max(max_err, err), max(max_rel, rel)
-            print(f"upconv_blur one-pass bf16 {(b, i, h, h)} -> {o} {label}:"
+            print(f"upconv_blur one-pass bf16 {(b, i, h, w)} -> {o} {label}:"
                   f" max abs diff {err:.3e}, {rel:.3e} of max |plain| "
-                  f"(limit {BF16_UPCONV_RTOL}); the plain bf16 version is "
-                  f"{rounding:.3e} from fp32")
-            if tuple(got.shape) != (b, o, 2 * h, 2 * h) or \
+                  f"(limit {BF16_UPCONV_RTOL}); two launches bit for bit: "
+                  f"{same}; the plain bf16 version is {rounding:.3e} from "
+                  f"fp32; tile {tuple(tile)}")
+            if tuple(got.shape) != (b, o, 2 * h, 2 * w) or \
                     not rel <= BF16_UPCONV_RTOL:
-                raise AssertionError(f"K1's bf16 mode differs from its "
+                raise AssertionError(f"K1's bf16 kernel differs from its "
                                      f"plain version by {rel}")
+            if not same:
+                raise AssertionError("two launches of K1's bf16 kernel "
+                                     "differ")
+            del got, again, want, exact
         w6 = library_up_kernel(torch, wf, kf).to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
         ms = time_ms(torch, lambda: kup.upconv_blur_cuda(
@@ -3787,18 +3811,18 @@ def check_upconv_bf16(torch, gen) -> dict:
         tf32_ms = time_ms(torch, lambda: kup.upconv_blur_cuda(x, wf, kf,
                                                               *epi))
         library_ms = time_ms(torch, lambda: library_upconv(torch, xb, w6))
-        bound, by = upconv_bf16_bound_ms(b, i, h, o)
-        rows.append({"shape": [b, i, h, h, o], "ms": ms,
+        bound, by = upconv_bf16_bound_ms(b, i, h, o, w)
+        rows.append({"shape": [b, i, h, w, o], "ms": ms,
                      "plain_ms": plain_ms, "tf32_ms": tf32_ms,
                      "library_ms": library_ms, "bound_ms": bound,
-                     "bound_by": by,
-                     "tile": list(kup._plan(b, i, h, h, o, 16))})
-        print(f"upconv_blur one-pass bf16 time {(b, i, h, h)} -> {o}: "
+                     "bound_by": by, "tile": list(tile)})
+        print(f"upconv_blur one-pass bf16 time {(b, i, h, w)} -> {o}: "
               f"{ms:.4f} ms ({ms / bound:.2f}x its bound {bound:.4f} ms, "
-              f"{by}), plain {plain_ms:.4f} ms, 3xTF32 mode {tf32_ms:.4f} "
+              f"{by}), plain {plain_ms:.4f} ms, 3xTF32 kernel {tf32_ms:.4f} "
               f"ms, library conv_transpose2d 6x6 bf16 {library_ms:.4f} ms")
         del x, wf, epi, w6, xb
-    return {"rows": rows, "max_abs_err": max_err, "max_rel_err": max_rel}
+    return {"rows": rows, "max_abs_err": max_err, "max_rel_err": max_rel,
+            "ptxas": ptxas}
 
 
 def check_faces(model, params, counters, batch: int = FACES_BATCH) -> dict:
@@ -4111,10 +4135,11 @@ def add_slice12(kernels: dict, results: dict, launches: dict) -> None:
     and each kernel's ``slice12_launches``."""
     faces = results["faces"]
     bf16 = faces["upconv_bf16"]
-    head = bf16["rows"][-1]
+    head = next(r for r in bf16["rows"]
+                if r["shape"] == [16, 256, 128, 128, 128])
     kernels["upconv_blur_bf16"] = {
         "name": "upconv_blur_bf16", "route": "cuda",
-        "source": "rewriting_torch/csrc/upconv_blur.cu",
+        "source": "rewriting_torch/csrc/upconv_blur_bf16.cu",
         "replaces": "rewriting_tpu/ops/pallas_upconv.py:232 "
                     "(upconv_blur_pallas at DEFAULT precision)",
         "launches": faces["launches"]["k1_default"]["k1_bf16"],
@@ -4123,7 +4148,7 @@ def add_slice12(kernels: dict, results: dict, launches: dict) -> None:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "tf32_mode_ms": head["tf32_ms"],
-        "rows": bf16["rows"],
+        "rows": bf16["rows"], "ptxas": bf16["ptxas"],
         "slice12_launches": {k: v["k1_bf16"]
                              for k, v in faces["launches"].items()}}
     for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
@@ -4174,9 +4199,9 @@ def main() -> int:
 
     # 2. build and load the kernels, one nvcc each, all at once ---------------
     t0 = time.time()
-    names = ("blur2d", "upconv_blur", "upsample2x")
+    names = ("blur2d", "upconv_blur", "upconv_blur_bf16", "upsample2x")
     _build.build_all(names)
-    kblur.library(), kup.library(), kup2.library()
+    kblur.library(), kup.library(), kup.library_bf16(), kup2.library()
     print(f"{', '.join(names)} built and loaded in {time.time() - t0:.3f} s")
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():

@@ -12,7 +12,8 @@ Three hand-written CUDA kernels run on a CUDA tensor, each with its plain
 PyTorch version for a CPU tensor: the FIR blur after every up-conv of the
 seq pipeline, with its backward (``csrc/blur2d.cu``); the fused up-conv +
 blur + epilogue of the sampling pipeline ``pipeline_fast``
-(``csrc/upconv_blur.cu``); and the 2x FIR upsample of wide maps
+(``csrc/upconv_blur.cu`` in 3xTF32, ``csrc/upconv_blur_bf16.cu`` in one-pass
+bf16 for the "default" and "int8" tiers); and the 2x FIR upsample of wide maps
 (``csrc/upsample2x.cu``).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; they raise if CUDA is asked for and absent.
 """

@@ -60,17 +60,10 @@
 //  - grid = (O / (16 warps_n), tiles, B / nimg); batches beyond the grid's
 //    z limit are launched in slices.
 //
-// The one-pass bf16 mode (mode 1), the counterpart of the TPU kernel's
-// DEFAULT precision, for the "default" and "int8" tiers of a precision
-// schedule (ops/precision.py): the same tiles, ring and epilogue, but the
-// operands are rounded to bf16 (to nearest even) as their fragments are
-// read from shared memory and each tap is one mma.sync.m16n8k16 bf16 with
-// fp32 accumulation, straight into the accumulator, per 16 input channels
-// (kc a multiple of 16).  A bf16 product is exact in fp32, so the mode
-// computes the fp32 conv of the rounded operands to fp32 summation error.
-// Its bound: 2 * MACs at the bf16 dense peak of 989 TFLOP/s.
+// This is the "highest" and "high" tiers' kernel.  The one-pass bf16 mode
+// of the "default" and "int8" tiers (the TPU kernel's DEFAULT precision) is
+// csrc/upconv_blur_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -152,22 +145,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (to nearest even) in one register, lo in the
-// low half: the element of the lower k index, as the fragments hold it
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // N bytes global -> shared; zeros where !valid
@@ -283,39 +260,6 @@ __device__ __forceinline__ void tap(float (&acc)[kMT][kNT][4][4],
   }
 }
 
-// The bf16 A fragments (m16n8k16: channels 2 tq, 2 tq + 1 and 2 tq + 8,
-// 2 tq + 9 of rows gq and gq + 8) of input shift (SY, SX)
-template <int SY, int SX>
-__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[kMT][4],
-                                            const float* xa, int xk, int xw,
-                                            const int (&base)[kMT][2]) {
-  const int so = (1 - SY) * xw + (1 - SX);
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const int b0 = base[mt][0] + so;
-    const int b1 = base[mt][1] + so;
-    a[mt][0] = pack_bf16(xa[b0], xa[xk + b0]);
-    a[mt][1] = pack_bf16(xa[b1], xa[xk + b1]);
-    a[mt][2] = pack_bf16(xa[8 * xk + b0], xa[9 * xk + b0]);
-    a[mt][3] = pack_bf16(xa[8 * xk + b1], xa[9 * xk + b1]);
-  }
-}
-
-// One tap into phase P in bf16: its B fragments and one mma a tile
-template <int P>
-__device__ __forceinline__ void tap_bf16(float (&acc)[kMT][kNT][4][4],
-                                         const uint32_t (&a)[kMT][4],
-                                         const float* wb, int wk) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const uint32_t b0 = pack_bf16(wb[nt * 8], wb[wk + nt * 8]);
-    const uint32_t b1 = pack_bf16(wb[8 * wk + nt * 8], wb[9 * wk + nt * 8]);
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[mt][nt][P], a[mt], b0, b1);
-  }
-}
-
-template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 upconv_blur_kernel(const float* __restrict__ x, const float* __restrict__ wp,
                    float* __restrict__ y, int batch, int in_c, int out_c,
@@ -380,27 +324,6 @@ upconv_blur_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     cp_commit();
     const float* xs = smem + (c % kStages) * stage_floats;
     const float* ws = xs + t.kc * g.xk;
-    if (kMode == 1) {
-      for (int kk = 0; kk < t.kc; kk += 16) {
-        const float* xa = xs + (kk + 2 * tq) * g.xk;
-        const float* wb = ws + (kk + 2 * tq) * g.wk + wn * kWarpN + gq;
-        uint32_t a[kMT][4];
-        load_a_bf16<1, 1>(a, xa, g.xk, g.xw, base);
-        tap_bf16<0>(acc, a, wb + 0 * g.nblk, g.wk);  // (0, 0)
-        load_a_bf16<1, 0>(a, xa, g.xk, g.xw, base);
-        tap_bf16<1>(acc, a, wb + 1 * g.nblk, g.wk);  // (0, 1)
-        tap_bf16<0>(acc, a, wb + 2 * g.nblk, g.wk);  // (0, 2)
-        load_a_bf16<0, 1>(a, xa, g.xk, g.xw, base);
-        tap_bf16<2>(acc, a, wb + 3 * g.nblk, g.wk);  // (1, 0)
-        tap_bf16<0>(acc, a, wb + 6 * g.nblk, g.wk);  // (2, 0)
-        load_a_bf16<0, 0>(a, xa, g.xk, g.xw, base);
-        tap_bf16<3>(acc, a, wb + 4 * g.nblk, g.wk);  // (1, 1)
-        tap_bf16<2>(acc, a, wb + 5 * g.nblk, g.wk);  // (1, 2)
-        tap_bf16<1>(acc, a, wb + 7 * g.nblk, g.wk);  // (2, 1)
-        tap_bf16<0>(acc, a, wb + 8 * g.nblk, g.wk);  // (2, 2)
-      }
-      continue;
-    }
     for (int kk = 0; kk < t.kc; kk += 8) {
       const float* xa = xs + (kk + tq) * g.xk;
       const float* wb = ws + (kk + tq) * g.wk + wn * kWarpN + gq;
@@ -532,8 +455,7 @@ upconv_blur_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 // With demod != nullptr the epilogue runs: demod (batch, out_c), noise
 // (batch or 1, 2h, 2w) with the given batch stride (0 broadcasts one map),
 // bias (out_c).  The tile (nimg, th, tw, warps_m, warps_n, kc) comes from
-// ops/upconv_blur.py::_plan; mode 0 is 3xTF32, mode 1 one-pass bf16 (kc a
-// multiple of 16).  Returns a CUDA error code: that of
+// ops/upconv_blur.py::_plan.  Returns a CUDA error code: that of
 // cudaFuncSetAttribute where it fails, else cudaGetLastError() after the
 // launches; does not synchronise.
 extern "C" int upconv_blur_f32(const float* x, const float* wp, float* y,
@@ -541,13 +463,12 @@ extern "C" int upconv_blur_f32(const float* x, const float* wp, float* y,
                                const float* taps4, const float* demod,
                                const float* noise, long long noise_bstride,
                                const float* bias, int nimg, int th, int tw,
-                               int warps_m, int warps_n, int kc, int mode,
+                               int warps_m, int warps_n, int kc,
                                cudaStream_t stream) {
   const Tile t{nimg, th, tw, warps_m, warps_n, kc};
   if (batch < 1 || in_c < 1 || out_c < 1 || h < 1 || w < 1 || nimg < 1 ||
       th < 1 || tw < 1 || warps_m < 1 || warps_n < 1 || kc < 8 || kc % 8 ||
-      (nimg > 1 && (th != h || tw != w)) || mode < 0 || mode > 1 ||
-      (mode == 1 && kc % 16)) {
+      (nimg > 1 && (th != h || tw != w))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geo g = geometry(t);
@@ -558,13 +479,13 @@ extern "C" int upconv_blur_f32(const float* x, const float* wp, float* y,
       smem > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool smem_raised[2] = {false, false};
-  if (smem > 48 * 1024 && !smem_raised[mode]) {
+  static bool smem_raised = false;
+  if (smem > 48 * 1024 && !smem_raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mode ? upconv_blur_kernel<1> : upconv_blur_kernel<0>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        upconv_blur_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_raised[mode] = true;
+    smem_raised = true;
   }
   const int tiles_y = (h + th - 1) / th;
   const int tiles_x = (w + tw - 1) / tw;
@@ -583,15 +504,9 @@ extern "C" int upconv_blur_f32(const float* x, const float* wp, float* y,
     const float* nz = demod ? noise + b0 * noise_bstride : nullptr;
     const dim3 grid(oblocks, static_cast<unsigned>(tiles),
                     (nb + nimg - 1) / nimg);
-    if (mode) {
-      upconv_blur_kernel<1><<<grid, threads, smem, stream>>>(
-          x + b0 * in_plane, wp, y + b0 * out_plane, nb, in_c, out_c, h, w,
-          tiles_x, t, g, taps, dm, nz, noise_bstride, bias);
-    } else {
-      upconv_blur_kernel<0><<<grid, threads, smem, stream>>>(
-          x + b0 * in_plane, wp, y + b0 * out_plane, nb, in_c, out_c, h, w,
-          tiles_x, t, g, taps, dm, nz, noise_bstride, bias);
-    }
+    upconv_blur_kernel<<<grid, threads, smem, stream>>>(
+        x + b0 * in_plane, wp, y + b0 * out_plane, nb, in_c, out_c, h, w,
+        tiles_x, t, g, taps, dm, nz, noise_bstride, bias);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,10 @@ layers,
 
 and optionally the epilogue ``sqrt(2) * leaky_relu(y * demod + noise +
 bias, 0.2)``: the dconv, blur, noise and activate stages of the seq
-pipeline in one pass.  The source, its design and what bounds it are
-described in ``csrc/upconv_blur.cu``.
+pipeline in one pass.  Two sources: ``csrc/upconv_blur.cu`` (3xTF32
+``mma.sync``) and ``csrc/upconv_blur_bf16.cu`` (the one-pass bf16 mode,
+``wgmma`` on operands rounded to bf16 once); each describes its design and
+what bounds it.
 
 - :func:`upconv_blur_cuda` launches the kernel on a CUDA tensor or raises,
   and counts its launches in the module attribute ``launches`` (3xTF32)
@@ -28,7 +30,7 @@ the JAX kernel reads ``get_precision()`` (``pallas_upconv.py:236``):
 kernel's HIGHEST and bf16x3 HIGH (:58-78); "default" the one-pass bf16
 mode, the JAX kernel's DEFAULT: ``x`` and ``wf`` rounded to bf16 (to
 nearest even) and their products summed in fp32 on the tensor cores
-(``mma.m16n8k16`` bf16).  Its plain version rounds ``x`` and ``wf`` to
+(``wgmma`` m64n64k16 bf16).  Its plain version rounds ``x`` and ``wf`` to
 bf16 and computes the rest in fp32.  The blur and the epilogue are fp32
 in both modes.
 
@@ -51,9 +53,10 @@ needs no probe (on a CUDA tensor the kernel launches or raises), so here
 ``"auto"`` is ``"on"`` with the same gates.  ``set_fused_epilogue``
 toggles the in-kernel epilogue, as in the JAX package.
 
-:func:`_plan` picks the kernel's tile for a layer shape; it and the
-3xTF32 model (:func:`_tf32_round`, :func:`_split_matmul_3xtf32`) are plain
-Python so that the CPU tests reach them.
+:func:`_plan` and :func:`_plan_bf16` pick each kernel's tile for a layer
+shape; they, :func:`pack_weights_bf16` and the 3xTF32 model
+(:func:`_tf32_round`, :func:`_split_matmul_3xtf32`) are plain Python or
+PyTorch so that the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ from .fused_act import fused_leaky_relu
 launches = 0
 launches_bf16 = 0
 
-# the kernel's modes (csrc/upconv_blur.cu), by precision tier
+# the kernel's modes by precision tier: 0 is csrc/upconv_blur.cu (3xTF32),
+# 1 csrc/upconv_blur_bf16.cu (one-pass bf16)
 _MODES = {"highest": 0, "high": 0, "default": 1}
 
 _FUSED_MODE = "off"     # "off" | "on" | "auto"
@@ -183,16 +187,14 @@ def _mode(tier: str) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, in_c: int, h: int, w: int, out_c: int,
-          kc_min: int = 8) -> Tile:
+def _plan(b: int, in_c: int, h: int, w: int, out_c: int) -> Tile:
     """The tile for a layer shape.  Maps of at most 64 positions go whole,
     ``nimg`` images a block, as many as keep the grid at one block per SM
     or more while the blur's buffers fit; larger maps go in tiles of 8 x
     16 input positions (10 x 18 with the halo: 6 warps of 32 positions).  Blocks take 32 output
     channels and stage 32 input channels at a time where that fits.
     These choices are the fastest of those timed on an H100 at the
-    church-256 shapes (``PERF.md`` §6).  The one-pass bf16 mode takes 16
-    input channels an MMA, so it asks for ``kc_min`` = 16."""
+    church-256 shapes (``PERF.md`` §6)."""
     if min(b, in_c, h, w, out_c) < 1:
         raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
     if h * w <= 64:
@@ -207,11 +209,134 @@ def _plan(b: int, in_c: int, h: int, w: int, out_c: int,
         th, tw, nimg = min(8, h), min(16, w), 1
         warps_n = 2 if out_c > _WARP_N else 1
     warps_m = -(-nimg * (th + 2) * (tw + 2) // _WARP_M)
-    for kc in (k for k in (32, 16, 8) if k >= kc_min):
+    for kc in (32, 16, 8):
         t = Tile(nimg, th, tw, warps_m, warps_n, kc)
         if _geometry(t)["smem"] <= _MAX_SMEM:
             return t
     raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
+
+
+# The one-pass bf16 kernel's fixed shape (csrc/upconv_blur_bf16.cu): 2
+# warpgroups over 128 positions x 64 output channels x 4 phases (128 fp32
+# accumulators a thread); input channels staged 32 at a time; a ring of 4
+# weight stages (9 B tiles of 4096 bytes each) and 2 fp32 x stages (rows
+# of the staged tile from a 16-byte aligned column, padded to 16 bytes:
+# the TMA box); x rounded into
+# 80-byte position rows, 2 stages; the blur's phase planes of all 64
+# channels, its row pass 32 channels a round.
+_BF16_ROWS, _BF16_N, _BF16_KC, _BF16_CC = 128, 64, 32, 32
+_BF16_WSTAGES, _BF16_XROW = 4, 80
+_BF16_TAP_BYTES = _BF16_N * _BF16_KC * 2
+# fp32 accumulators a thread: 4 phases x (64 x 64) / 128 threads
+BF16_ACC_REGS = 4 * 64 * _BF16_N // 128
+
+
+class TileBf16(NamedTuple):
+    """A one-pass block's tile: ``nimg`` whole images or one image's ``th``
+    x ``tw`` input positions, with the phase halo (``th + 2`` x ``tw + 2``
+    positions an image)."""
+    nimg: int
+    th: int
+    tw: int
+
+
+def _geometry_bf16(t: TileBf16) -> dict:
+    """What the bf16 launcher checks of a tile, as ``geometry`` in
+    ``csrc/upconv_blur_bf16.cu`` derives it: the block's positions, the
+    staged positions and the shared memory in bytes (the larger of the
+    ring, with the position table, and the blur's buffers)."""
+    def up(n, m):
+        return -(-n // m) * m
+
+    ph, pw, xh, xw = t.th + 2, t.tw + 2, t.th + 3, up(t.tw + 6, 4)
+    npos = t.nimg * xh * xw
+    xstage = up(_BF16_KC * npos * 4, 1024)
+    off_xf = _BF16_WSTAGES * 9 * _BF16_TAP_BYTES
+    off_xb = off_xf + 2 * xstage
+    off_pos = off_xb + 2 * npos * _BF16_XROW
+    ring = off_pos + 4 * npos
+    cg = (2 * t.tw + 3) // 4                 # groups of 4 output columns
+    pc, rc = 4 * cg + 8, 4 * cg
+    # a phase plane, padded so that planes 2 apart are 8 words apart mod 32
+    pst = 2 * ph * pc + (4 if (4 * ph * pc) % 32 == 0 else 0)
+    epi = 4 * t.nimg * (_BF16_N * pst + _BF16_CC * (2 * t.th + 3) * rc)
+    off_par = up(max(ring, epi), 16)
+    # the mbarriers last: no buffer overlaps them
+    off_bar = up(off_par + 4 * (t.nimg * (2 * t.th * rc + _BF16_N)
+                                + _BF16_N), 8)
+    smem = off_bar + 8 * _BF16_WSTAGES
+    return {"m_valid": t.nimg * ph * pw, "xw": xw, "npos": npos,
+            "cg": cg, "pc": pc, "rc": rc, "pst": pst,
+            "xstage": xstage, "off_xf": off_xf, "off_xb": off_xb,
+            "off_pos": off_pos, "off_bar": off_bar, "ring": ring,
+            "epi": epi, "off_par": off_par, "smem": smem, "threads": 256,
+            "acc_regs": BF16_ACC_REGS}
+
+
+def _grid_bf16(b: int, h: int, w: int, out_c: int, t: TileBf16):
+    """The bf16 launcher's grid: output-channel blocks, tiles, batch
+    groups."""
+    return (-(-out_c // _BF16_N), -(-h // t.th) * -(-w // t.tw),
+            -(-b // t.nimg))
+
+
+def _fits_bf16(t: TileBf16) -> bool:
+    g = _geometry_bf16(t)
+    return g["m_valid"] <= _BF16_ROWS and g["smem"] <= _MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_bf16(b: int, in_c: int, h: int, w: int, out_c: int) -> TileBf16:
+    """The one-pass bf16 kernel's tile for a layer shape.  A block computes
+    128 positions whatever its tile, so the tile is the one that needs the
+    fewest blocks: maps whose (h + 2) (w + 2) phase positions fit go whole,
+    ``nimg`` images a block, as many as keep the grid at one block per SM
+    or more and fit the shared memory; larger maps go in th x tw tiles
+    with (th + 2) (tw + 2) <= 128 that fit the shared memory and need the
+    fewest tiles, the widest of those (rows of the output are
+    contiguous)."""
+    if min(b, in_c, h, w, out_c) < 1:
+        raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
+    if (h + 2) * (w + 2) <= _BF16_ROWS:
+        oblocks = -(-out_c // _BF16_N)
+        nimg = 1
+        while (nimg < b and _fits_bf16(TileBf16(nimg + 1, h, w))
+               and oblocks * -(-b // (nimg + 1)) >= _SMS):
+            nimg += 1
+        return TileBf16(nimg, h, w)
+    best = None
+    for th in range(1, h + 1):
+        tw = min(w, _BF16_ROWS // (th + 2) - 2)
+        while tw >= 1 and not _fits_bf16(TileBf16(1, th, tw)):
+            tw -= 1
+        if tw < 1:
+            continue
+        key = (-(-h // th) * -(-w // tw), -tw, -th)
+        if best is None or key < best[0]:
+            best = (key, TileBf16(1, th, tw))
+    if best is None:
+        raise ValueError(f"no tile for shape {(b, in_c, h, w, out_c)}")
+    return best[1]
+
+
+def pack_weights_bf16(wf: torch.Tensor) -> torch.Tensor:
+    """The correlation taps ``wf`` (O, I, 3, 3) rounded to bf16 (to nearest
+    even, as ``.to(torch.bfloat16)``) in the layout the bf16 kernel's wgmma
+    B descriptors read, zero-padded to whole blocks: (ceil(O / 64),
+    ceil(I / 32), 9 taps, 4 k groups, 8 n groups, 8 rows, 8 values), i.e.
+    for output channel o = 64 ob + 8 j + r and input channel i = 32 c +
+    8 g + e, tap 3 dy + dx.  Each (ob, c) is one chunk's 36864 bytes, the
+    shared-memory image of its 9 K-major no-swizzle B tiles."""
+    o, i = wf.shape[:2]
+    ob, nc = -(-o // _BF16_N), -(-i // _BF16_KC)
+    if (ob * _BF16_N, nc * _BF16_KC) != (o, i):
+        wf = F.pad(wf, (0, 0, 0, 0, 0, nc * _BF16_KC - i,
+                        0, ob * _BF16_N - o))
+    view = wf.reshape(ob, 8, 8, nc, 4, 8, 9).permute(  # ob j r c g e tap
+        0, 3, 6, 4, 1, 2, 5)
+    # one copy rounds and permutes
+    out = torch.empty(view.shape, dtype=torch.bfloat16, device=wf.device)
+    return out.copy_(view)
 
 
 def _tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -262,13 +387,27 @@ def upconv_blur_reference(x: torch.Tensor, wf: torch.Tensor, kf,
 
 @functools.lru_cache(maxsize=None)
 def library():
-    """The built and loaded launcher ``upconv_blur_f32``."""
+    """The built and loaded 3xTF32 launcher ``upconv_blur_f32``."""
     lib = _build.load("upconv_blur")
     fn = lib.upconv_blur_f32
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                               ctypes.c_void_p]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def library_bf16():
+    """The built and loaded one-pass bf16 launcher
+    ``upconv_blur_bf16_f32``."""
+    lib = _build.load("upconv_blur_bf16")
+    fn = lib.upconv_blur_bf16_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                              ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -305,9 +444,15 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     out_c = wf.shape[0]
     _check("wf", wf, [(out_c, in_c, 3, 3)], x.device)
     taps = flipped_taps(kf)
-    tile = _plan(b, in_c, h, w, out_c, 16 if mode else 8)
-    # (O, I, 3, 3) -> (I, 3, 3, O): a block's weight slice is contiguous
-    wp = wf.permute(1, 2, 3, 0).contiguous()
+    if mode:
+        tile = _plan_bf16(b, in_c, h, w, out_c)
+        wp = pack_weights_bf16(wf)
+        fn = library_bf16()
+    else:
+        tile = _plan(b, in_c, h, w, out_c)
+        # (O, I, 3, 3) -> (I, 3, 3, O): a block's weight slice is contiguous
+        wp = wf.permute(1, 2, 3, 0).contiguous()
+        fn = library()
     if epilogue:
         _check("demod", demod, [(b, out_c)], x.device)
         _check("noise", noise, [(b, 1, 2 * h, 2 * w), (1, 1, 2 * h, 2 * w)],
@@ -320,11 +465,10 @@ def upconv_blur_cuda(x: torch.Tensor, wf: torch.Tensor, kf, demod=None,
     else:
         ptrs = (None, None, 0, None)
     y = torch.empty((b, out_c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    fn = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, in_c, out_c, h,
-                w, taps.ctypes.data, *ptrs, *tile, mode, stream)
+                w, taps.ctypes.data, *ptrs, *tile, stream)
     if rc != 0:
         raise RuntimeError(f"upconv_blur kernel launch failed: CUDA error "
                            f"{rc}")

@@ -1,8 +1,11 @@
 """Time the fused up-conv + blur kernel (K1) against an earlier version of
-its source, on one CUDA device, at the church-256 layer shapes.
+its source, on one CUDA device, at the church-256 layer shapes; or, with
+``--bf16``, its one-pass bf16 kernel against an earlier one-pass mode.
 
     python3 scripts/compare_upconv.py --old path/to/old/upconv_blur.cu
         [--batch 16] [--runs 25] [--ablations]
+    python3 scripts/compare_upconv.py --bf16 --old path/to/upconv_blur.cu
+        [--runs 25]
 
 The old source is built with the same nvcc flags into a temporary
 directory and called through its own launcher, whose signature is that of
@@ -18,6 +21,15 @@ straight into the accumulators (no per-tap sums in fp32), and ``cvt``, the
 TF32 rounding by ``cvt.rna.tf32.f32`` in place of the two integer
 operations.  They show why the source does what it does; an error above
 ``UPCONV_RTOL`` is reported, not raised.
+
+``--bf16`` builds the old source as the one-pass mode's earlier home (the
+``upconv_blur.cu`` whose launcher takes the tile and a mode, mode 1 the
+bf16 ``mma.sync`` version, e.g. ``git show d5c43c3:rewriting_torch/csrc/
+upconv_blur.cu``) and times it against ``csrc/upconv_blur_bf16.cu``
+through ``upconv_blur_cuda(..., tier="default")`` at each shape of
+``chip_smoke.BF16_UPCONV_SHAPES``, with the epilogue, in turns: old, new,
+new, old.  Both are held to the plain bf16 version
+(``BF16_UPCONV_RTOL``) first.
 """
 
 from __future__ import annotations
@@ -57,6 +69,92 @@ def load_old(source: str, outdir: str):
                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_old_bf16(source: str, outdir: str):
+    """Build an earlier upconv_blur.cu with the one-pass mode and return
+    its launcher (the tile's six ints and the mode before the stream)."""
+    lib = os.path.join(outdir, "libupconv_blur_old_bf16.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                           source], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    for line in proc.stderr.splitlines():
+        if "registers" in line or "spill" in line:
+            print("old ptxas -v:", line.strip())
+    fn = ctypes.CDLL(lib).upconv_blur_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                              ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def compare_bf16(old_source: str, runs: int) -> list:
+    """The old one-pass mode against the new kernel at
+    ``chip_smoke.BF16_UPCONV_SHAPES``; returns the rows."""
+    kf = (0.25, 0.75, 0.75, 0.25)
+    taps4 = kup.flipped_taps(kf)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="compare_upconv_") as tmp:
+        old = load_old_bf16(old_source, tmp)
+        kup.library_bf16()
+        for b, i, h, w, o in chip_smoke.BF16_UPCONV_SHAPES:
+            x = torch.randn((b, i, h, w), generator=gen, device="cuda")
+            wf = torch.randn((o, i, 3, 3), generator=gen,
+                             device="cuda") / (3.0 * i ** 0.5)
+            demod = torch.rand((b, o), generator=gen, device="cuda") + 0.5
+            noise = torch.randn((1, 1, 2 * h, 2 * w), generator=gen,
+                                device="cuda")
+            bias = torch.randn((o,), generator=gen, device="cuda")
+            # the earlier wrapper's packing and tile: (I, 3, 3, O), and
+            # the 3xTF32 plan staging 16 channels or more
+            tile = kup._plan(b, i, h, w, o)
+            if tile.kc < 16:
+                raise RuntimeError(f"{(b, i, h, w, o)}: the old mode needs "
+                                   f"kc >= 16, the plan stages {tile.kc}")
+            y_old = torch.empty((b, o, 2 * h, 2 * w), device="cuda")
+
+            def run_old():
+                wp = wf.permute(1, 2, 3, 0).contiguous()
+                rc = old(x.data_ptr(), wp.data_ptr(), y_old.data_ptr(), b, i,
+                         o, h, w, taps4.ctypes.data, demod.data_ptr(),
+                         noise.data_ptr(), 0, bias.data_ptr(), *tile, 1,
+                         torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"old kernel: CUDA error {rc}")
+
+            def run_new():
+                return kup.upconv_blur_cuda(x, wf, kf, demod, noise, bias,
+                                            tier="default")
+
+            want = kup.upconv_blur_reference(x, wf, kf, demod, noise, bias,
+                                             tier="default")
+            run_old()
+            got = run_new()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            errs = [float((y - want).abs().max()) / scale
+                    for y in (y_old, got)]
+            if not max(errs) <= chip_smoke.BF16_UPCONV_RTOL:
+                raise AssertionError(f"{(b, i, h, w, o)}: errors {errs}")
+            times = [chip_smoke.time_ms(torch, fn, runs=runs)
+                     for fn in (run_old, run_new, run_new, run_old)]
+            bound, by = chip_smoke.upconv_bf16_bound_ms(b, i, h, o, w)
+            rows.append({"shape": [b, i, h, w, o], "old_ms": times[::3],
+                         "new_ms": times[1:3], "bound_ms": bound,
+                         "bound_by": by, "old_rel_err": errs[0],
+                         "new_rel_err": errs[1],
+                         "tile": list(kup._plan_bf16(b, i, h, w, o))})
+            print(f"K1 one-pass {(b, i, h, w)} -> {o}: old {times[0]:.4f} / "
+                  f"{times[3]:.4f} ms, new {times[1]:.4f} / {times[2]:.4f} "
+                  f"ms, bound {bound:.4f} ms ({by}); errors "
+                  f"{errs[0]:.2e} / {errs[1]:.2e} of max |plain|",
+                  flush=True)
+            del x, wf, y_old, got, want
+    return rows
 
 
 def ablation_sources() -> dict:
@@ -110,6 +208,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True,
                     help="the earlier csrc/upconv_blur.cu")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the one-pass bf16 kernel against the old "
+                         "source's mode 1")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--runs", type=int, default=25)
     ap.add_argument("--ablations", action="store_true",
@@ -123,6 +224,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print("card:", smi.stdout.strip())
+    if a.bf16:
+        print(json.dumps({"compare_upconv_bf16": compare_bf16(a.old,
+                                                              a.runs)}))
+        return 0
     kf = (0.25, 0.75, 0.75, 0.25)
     taps16 = kup.blur_taps(kf)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -180,7 +285,7 @@ def main() -> int:
                     rc = fn(x.data_ptr(), wp.data_ptr(),
                             y_var.data_ptr(), b, i, o, h, h,
                             taps4.ctypes.data, demod.data_ptr(),
-                            noise.data_ptr(), 0, bias.data_ptr(), *tile, 0,
+                            noise.data_ptr(), 0, bias.data_ptr(), *tile,
                             torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise RuntimeError(f"{name}: CUDA error {rc}")

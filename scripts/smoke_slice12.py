@@ -47,8 +47,9 @@ def main() -> int:
     t_all = time.time()
     apply_parity_tier()
     t0 = time.time()
-    _build.build_all(("blur2d", "upconv_blur", "upsample2x"))
-    kblur.library(), kup.library(), kup2.library()
+    _build.build_all(("blur2d", "upconv_blur", "upconv_blur_bf16",
+                      "upsample2x"))
+    kblur.library(), kup.library(), kup.library_bf16(), kup2.library()
     for line in _build.build_logs.get("upconv_blur", "").splitlines():
         if "registers" in line or "spill" in line:
             print("K1 ptxas -v:", line.strip())
