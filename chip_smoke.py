@@ -125,7 +125,14 @@ set to 0 just before it and read just after:
   its s2d tail against the seq stages, its mixed schedule against
   "highest";
 - each encoder and decoder of ``SemanticSegmenter`` on seeded weights,
-  the card against the CPU over phase 9's PNGs.
+  the card against the CPU over phase 9's PNGs;
+- the Neural Best Buddies copy-paste baseline (``baselines/nbb.py``) on
+  two of phase 9's PNGs at VGG16's full widths: ``neural_best_buddies``
+  with 10 pairs a level on the card and on the CPU, the pyramids and
+  every level's mappings held together (a near-tie of the top two
+  candidates may swap), then ``nbb_paste`` with its defaults on the card,
+  copying the dome2tree request's object region, each level's counts and
+  each stage's seconds.  No kernel is on this path.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -4158,6 +4165,209 @@ def add_slice12(kernels: dict, results: dict, launches: dict) -> None:
             **{k: v[key] for k, v in launches.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: the NBB copy-paste baseline at church-256
+# ---------------------------------------------------------------------------
+
+NBB_SIZE = 256          # church-256's images, VGG16's full widths
+NBB_CPU_SIZE = 256      # (a)'s CPU comparison; 128 if the CPU takes > 60 s
+NBB_PYRAMID_RTOL = 1e-4  # card vs CPU VGG16 taps, of each level's max
+NBB_MARGIN = 1e-5       # find_mapping's candidates closer than this (of
+                        # the level's largest score) may swap by rounding
+NBB_K = 10              # pairs, and (a)'s k_per_level: the golden's run
+
+
+def nbb_images(clean_dir: str, size: int = NBB_SIZE):
+    """Two zc (size, size, 3) images from the first two PNGs of
+    `clean_dir`, shrunk by block means when size is under theirs."""
+    import numpy as np
+
+    from rewriting_torch.utils.renormalize import decode_png, renormalize
+
+    out = []
+    for name in png_paths(clean_dir)[:2]:
+        with open(name, "rb") as f:
+            img = renormalize(decode_png(f.read()), "byte", "zc")
+        s = img.shape[0] // size
+        out.append(img.reshape(size, s, size, s, 3).mean((1, 3))
+                   .astype(np.float32))
+    return out
+
+
+def nbb_level_table(stats: dict) -> list:
+    """The printable part of ``sparse_correspondence``'s per-level stats."""
+    return [{k: v for k, v in lv.items() if k != "mapping"}
+            for lv in stats["levels"]]
+
+
+def first_mapping_difference(card: dict, cpu: dict, device: str):
+    """The first level and position where the card's and the CPU's
+    ``find_mapping`` differ, with the CPU inputs' float64 top-two margin
+    there over the level's largest score, or None if every level is
+    equal."""
+    import torch
+
+    from rewriting_torch.baselines import nbb
+
+    for lv_card, lv_cpu in zip(card["levels"], cpu["levels"]):
+        m, mc = lv_cpu["mapping"], lv_card["mapping"]
+        for key, src, dst, init in (("a2b", "A", "B", "map_ab"),
+                                    ("b2a", "B", "A", "map_ba")):
+            diff = (mc[key] != m[key]).any(-1)
+            if not bool(diff.any()):
+                continue
+            top, margin = nbb.mapping_margin(
+                m[src].to(device, torch.float64),
+                m[dst].to(device, torch.float64), m["patch"],
+                m[init].to(device), m["radius"])
+            scale = float(top.abs().max())
+            where = torch.nonzero(diff)
+            share = (margin.cpu()[diff] / scale)
+            return {"level": lv_cpu["level"], "mapping": key,
+                    "positions": int(diff.sum()),
+                    "first": [int(v) for v in where[0]],
+                    "largest_margin": float(share.max()),
+                    "near_tie": bool((share <= NBB_MARGIN).all())}
+    return None
+
+
+def check_nbb(clean_dir: str, device="cuda", size: int = NBB_SIZE,
+              cpu_size: int = NBB_CPU_SIZE) -> dict:
+    """Phase 37, the NBB copy-paste baseline (``baselines/nbb.py``) on two
+    of phase 9's church-256 PNGs at VGG16's full widths.
+
+    (a) ``neural_best_buddies`` with k_per_level=10 (the golden's
+    configuration) on `device` and on the CPU at `cpu_size`: the pyramids
+    within NBB_PYRAMID_RTOL of each level's max; every level's mappings
+    equal, or, at the first level that differs, only where the top-two
+    margin is within NBB_MARGIN of the level's largest score; the final
+    pairs equal unless such a near-tie came first.  At `size` on `device`
+    alone too when `cpu_size` is smaller.
+    (b) ``nbb_paste`` with its defaults (k_per_level=None) on `device`,
+    copying the dome2tree request's object region: the blend finite and
+    equal to image b outside the warped mask, per-level parent and buddy
+    counts and the seconds of each stage."""
+    import numpy as np
+    import torch
+
+    from rewriting_torch.baselines import nbb
+    from rewriting_torch.utils.renormalize import mask_from_url
+
+    out = {"size": size, "cpu_size": cpu_size}
+    a, b = nbb_images(clean_dir, size)
+
+    # (a) the card against the CPU, on the same images
+    ca, cb = nbb_images(clean_dir, cpu_size)
+    imgs = np.stack([ca, cb])
+    t0 = time.time()
+    card_pyr = nbb.default_feature_pyramid(imgs, device=device)
+    cpu_pyr = nbb.default_feature_pyramid(imgs, device="cpu")
+    pyr_err = [rel_diff(g.cpu(), w) for g, w in zip(card_pyr, cpu_pyr)]
+    widths = [int(p.shape[-1]) for p in card_pyr]
+    print(f"NBB pyramids at {cpu_size} px, {device} vs CPU: "
+          + ", ".join(f"{tuple(p.shape[1:])} {e:.2e}"
+                      for p, e in zip(card_pyr, pyr_err))
+          + f" of max (limit {NBB_PYRAMID_RTOL}); {time.time() - t0:.3f} s")
+    if widths != [64, 128, 256, 512, 512] or \
+            not max(pyr_err) <= NBB_PYRAMID_RTOL:
+        raise AssertionError(f"NBB pyramids: widths {widths}, {pyr_err}")
+    del card_pyr, cpu_pyr
+    runs = []
+    for dev in (device, "cpu"):
+        stats = {}
+        t0 = time.time()
+        pairs = nbb.neural_best_buddies(ca[None], cb[None], k=NBB_K,
+                                        k_per_level=NBB_K, device=dev,
+                                        stats=stats)
+        runs.append((pairs, stats, time.time() - t0))
+        print(f"NBB (a) at {cpu_size} px on {dev}: {len(pairs)} pairs in "
+              f"{runs[-1][2]:.3f} s; " + "; ".join(
+                  f"level {lv['level']}: buddies {lv['buddies']}, kept "
+                  f"{lv['kept']}, find_mapping {lv['find_mapping_s']:.3f} s"
+                  for lv in stats["levels"]))
+    (card_pairs, card_stats, card_s), (cpu_pairs, cpu_stats, cpu_s) = runs
+    first = first_mapping_difference(card_stats, cpu_stats, device)
+    same = card_pairs == cpu_pairs
+    print(f"NBB (a) {device} vs CPU: pairs equal {same}; first mapping "
+          f"difference {first}")
+    if first is not None and not first["near_tie"]:
+        raise AssertionError(f"NBB mappings differ beyond a near-tie: "
+                             f"{first}")
+    if first is None and not same:
+        raise AssertionError(f"NBB pairs differ with equal mappings: "
+                             f"{card_pairs} vs {cpu_pairs}")
+    if not 0 < len(card_pairs) <= NBB_K:
+        raise AssertionError(f"NBB (a) gave {len(card_pairs)} pairs")
+    out["a"] = {"pairs": card_pairs, "pairs_equal": same,
+                "first_difference": first, "pyramid_rel_err": pyr_err,
+                "card_s": card_s, "cpu_s": cpu_s,
+                "card_levels": nbb_level_table(card_stats),
+                "cpu_levels": nbb_level_table(cpu_stats)}
+    del runs, card_stats, cpu_stats
+    if cpu_size != size:
+        stats = {}
+        t0 = time.time()
+        pairs = nbb.neural_best_buddies(a[None], b[None], k=NBB_K,
+                                        k_per_level=NBB_K, device=device,
+                                        stats=stats)
+        out["a"]["full_size"] = {"pairs": pairs, "s": time.time() - t0,
+                                 "levels": nbb_level_table(stats)}
+        print(f"NBB (a) at {size} px on {device} alone: {len(pairs)} pairs "
+              f"in {out['a']['full_size']['s']:.3f} s")
+
+    # (b) the copy-paste baseline with its defaults
+    with open(MASK) as f:
+        mask = mask_from_url(json.load(f)["object"][1], (size, size)) > 0.5
+    stats = {}
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pasted, pairs = nbb.nbb_paste(a, b, mask, device=device, stats=stats)
+    wall = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if device != "cpu"
+            else None)
+    levels = nbb_level_table(stats)
+    src = [p[0] for p in pairs]
+    dst = [p[1] for p in pairs]
+    warped_mask = nbb.mls_warp(mask.astype(np.float32)[..., None], src,
+                               dst)[..., 0] > 0.5
+    outside = bool(np.array_equal(pasted[~warped_mask],
+                                  b.astype(np.float64)[~warped_mask]))
+    finite = bool(np.isfinite(pasted).all())
+    sums = {key: sum(lv[key] for lv in levels)
+            for key in ("find_mapping_s", "refine_s", "reconstruct_s",
+                        "kmeans_s")}
+    out["b"] = {"pairs": pairs, "wall_s": wall, "mask_pixels":
+                int(mask.sum()), "warped_mask_pixels":
+                int(warped_mask.sum()), "outside_unchanged": outside,
+                "finite": finite, "correspondences": stats["pairs"],
+                "peak_gib": peak,
+                "pyramid_s": stats["pyramid_s"],
+                "top_k_s": stats["top_k_s"], "mls_s": stats["mls_s"],
+                "poisson_s": stats["poisson_s"], **sums, "levels": levels}
+    print(f"NBB (b) nbb_paste at {size} px on {device}: {len(pairs)} pairs "
+          f"of {stats['pairs']} correspondences in {wall:.3f} s: pyramids "
+          f"{stats['pyramid_s']:.3f} s, find_mapping "
+          f"{sums['find_mapping_s']:.3f}, refinement {sums['refine_s']:.3f},"
+          f" reconstructions {sums['reconstruct_s']:.3f}, k-means "
+          f"{stats['top_k_s']:.3f}, MLS {stats['mls_s']:.3f}, Poisson "
+          f"{stats['poisson_s']:.3f}; mask {int(mask.sum())} -> "
+          f"{int(warped_mask.sum())} pixels; peak device memory {peak} GiB")
+    for lv in levels:
+        print(f"  level {lv['level']} {tuple(lv['shape'])}: parents "
+              f"{lv['parents']}, buddies {lv['buddies']}, children "
+              f"{lv['children']}, kept {lv['kept']}; find_mapping "
+              f"{lv['find_mapping_s']:.3f} s, refinement "
+              f"{lv['refine_s']:.3f} s")
+    if not (finite and outside and pasted.shape == (size, size, 3)
+            and 0 < len(pairs) <= NBB_K and warped_mask.any()):
+        raise AssertionError(f"nbb_paste: {out['b']}")
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -4950,6 +5160,23 @@ def main() -> int:
                                           slice12_counts)
         print(f"launches on phases 34-36: {launches12}")
         add_slice12(kernels, slice12, launches12)
+
+        # 37. the NBB copy-paste baseline at church-256, on two of phase
+        # 9's PNGs; no kernel on this path -------------------------------
+        t0 = time.time()
+        base = {**counts(), **slice12_counts()}
+        nbbres = check_nbb(clean_dir)
+        launches37 = {k: v - base[k]
+                      for k, v in {**counts(), **slice12_counts()}.items()}
+        print(f"launches on phase 37: {launches37}")
+        if any(launches37.values()):
+            raise AssertionError(f"phase 37 launched {launches37}")
+        for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                          ("upconv_blur_bf16", "k1_bf16"),
+                          ("upsample2x", "k3")):
+            kernels[name]["nbb_launches"] = launches37[key]
+        print(json.dumps({"nbb": nbbres}))
+        phase("37 NBB copy-paste baseline at church-256", t0)
     finally:
         work.cleanup()
         keep.cleanup()

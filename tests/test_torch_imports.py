@@ -73,6 +73,7 @@ SLICE11 = ("parallel", "parallel.comm", "parallel.mesh", "parallel.tensor",
            "parallel.pipeline", "parallel.dryrun")
 SLICE12 = ("ops.quant", "ops.precision", "models.stylegan2",
            "models.proggan", "segment.semantic")
+SLICE14 = ("baselines", "baselines.nbb", "baselines.nbbviz")
 
 
 def test_every_module_imports_without_jax_pil_or_the_jax_package():
@@ -83,7 +84,7 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
     count, loaded = first.split(" ", 1)
     assert int(count) >= 29 and loaded.strip() == "[]"
     for name in (SLICE2 + SLICE7 + SLICE8 + SLICE9 + SLICE10 + SLICE11
-                 + SLICE12):
+                 + SLICE12 + SLICE14):
         assert f"rewriting_torch.{name}" in names.split(), name
 
 
@@ -272,6 +273,31 @@ def test_slice12_entry_points_raise_without_cuda(no_cuda, device, tmp_path):
         zoo.load_seq_stylegan("faces", path=str(path), **kw)
 
 
+@pytest.mark.parametrize("device", [None, "cuda"], ids=["default", "cuda"])
+def test_slice14_entry_points_raise_without_cuda(no_cuda, device):
+    """The NBB baseline's entry points run on the card by default and
+    raise without CUDA; with ``device="cpu"`` they run there."""
+    import numpy as np
+    from rewriting_torch.baselines import nbb
+    kw = {} if device is None else {"device": device}
+    img = np.zeros((16, 16, 3), np.float32)
+    rng = np.random.RandomState(0)
+    pyr = [rng.rand(16 >> i, 16 >> i, 4).astype(np.float32)
+           for i in range(5)]
+    feats = np.eye(4, dtype=np.float32).reshape(2, 2, 4)
+    for call in (lambda: nbb.default_feature_pyramid(img[None], **kw),
+                 lambda: nbb.mutual_nearest_neighbors(feats, feats, **kw),
+                 lambda: nbb.sparse_correspondence(pyr, pyr, **kw),
+                 lambda: nbb.neural_best_buddies(img[None], img[None], **kw),
+                 lambda: nbb.nbb_paste(img, img, img[..., 0], **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert len(nbb.mutual_nearest_neighbors(feats, feats,
+                                            device="cpu")) == 4
+    assert len(nbb.sparse_correspondence(pyr, pyr, tau=0.0, border=0,
+                                         device="cpu")[0]) > 0
+
+
 def test_smoke_slice12_fails_without_cuda(no_cuda, capsys):
     sys.path.insert(0, str(ROOT / "scripts"))
     try:
@@ -279,6 +305,16 @@ def test_smoke_slice12_fails_without_cuda(no_cuda, capsys):
     finally:
         sys.path.remove(str(ROOT / "scripts"))
     assert smoke_slice12.main() != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_smoke_slice14_fails_without_cuda(no_cuda, capsys):
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import smoke_slice14
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    assert smoke_slice14.main() != 0
     assert "no CUDA device" in capsys.readouterr().err
 
 
