@@ -132,7 +132,15 @@ set to 0 just before it and read just after:
   every level's mappings held together (a near-tie of the top two
   candidates may swap), then ``nbb_paste`` with its defaults on the card,
   copying the dome2tree request's object region, each level's counts and
-  each stage's seconds.  No kernel is on this path.
+  each stage's seconds.  No kernel is on this path;
+- the sharded samplers at faces-1024 (``parallel/``), 4 ranks sharing the
+  card over gloo in a child job: K1 and its one-pass mode against their
+  plain versions at the slab shapes the spatial bands give them; the
+  1 x 4 and 2 x 2 bands with K1's gate on at every layer, and under the
+  "default" schedule from 256 px, against one device's
+  ``pipeline_fast``; the int8 schedule on dp, tp and the 1 x 4 bands
+  against one device's, each quantization's int8 values counted; each
+  rank's launches and seconds, which are ranks sharing one card.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -4368,6 +4376,401 @@ def check_nbb(clean_dir: str, device="cuda", size: int = NBB_SIZE,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 38: the sharded samplers at faces-1024
+# ---------------------------------------------------------------------------
+
+SHARDED_BATCH = 8           # the global batch of every sharded run
+SHARDED_LAYOUTS = ((1, 4), (2, 2))      # (data, spatial) of the bands
+SHARDED_DEFAULT_FROM = 256  # phase 34's "default" schedule with K1 on
+SHARDED_INT8_FROM = 512     # phase 34's int8 schedule
+# the bands with K1's gate on at every layer (3xTF32) against one device's
+# pipeline_fast under the same gate, of max |one device|
+SHARDED_RTOL = FORWARD_RTOL
+# under the "default" schedule, 1e-2 of max: "default" rounds each output
+# to bf16 (a flip is 2^-8 of it), and every layout sums some convolution
+# in another order than one device: the bands run the s2d tail's seq
+# stages at 1024 px where one device runs the tail's s2d convs (1 x 4
+# reads 3.5e-3), and the 2 x 2 ranks' batch of 4 takes other cuDNN
+# algorithms too (3.4e-3-3.7e-3)
+SHARDED_DEFAULT_RTOL = 1e-2
+# int8 on dp, tp and the bands against one device's int8 forward: the int8
+# values that differ are counted (expected 0), each scale held within
+# SHARDED_SCALE_RTOL of one device's (a rank that took its own share's max
+# reads 1e-2 and more off; a rounding tie that flipped may move the next
+# layer's max by a step), and the PSNR above the CPU tests' floor where a
+# tie flips (tests/test_torch_parallel_int8.py)
+SHARDED_SCALE_RTOL = 1e-3
+SHARDED_INT8_PSNR = 40.0
+# where the first int8 stage's values differ from one device's, how near
+# one device's |x| / scale lies to a quantum's half: a rounding tie that
+# the ranks' fp32 sums, taken in another order by cuDNN, tip the other
+# way (a few ulps of x are about 1e-5 of a quantum)
+SHARDED_TIE = 1e-3
+
+
+def band_slab_shapes(model, batch: int, n_spatial: int, min_res: int = 0):
+    """(B, I, H, W, O) of K1's launches on the bands of `n_spatial` ranks,
+    one a layer of `model` whose up-conv passes K1's gate at `min_res`
+    and is banded (``parallel/mesh.py``): the input rows of a band and one
+    more on each side, at full width."""
+    from rewriting_torch.models.stylegan2 import stage_resolution
+    shapes = []
+    for name, spec in model._param_specs.items():
+        if spec[0] != "dconv" or not spec[4] or name in model._s2d_names:
+            continue
+        in_c, out_c, res = spec[1], spec[2], stage_resolution(name)
+        if min(in_c, out_c) < 64 or in_c % 8 or out_c % 8 or res < min_res:
+            continue
+        if res % n_spatial or res // n_spatial < 1:
+            continue
+        a, b = 0, res // n_spatial
+        rows = (b + 1) // 2 - (a - 2) // 2 + 1
+        shapes.append((batch, in_c, rows, res // 2, out_c))
+    return shapes
+
+
+def check_band_kernels(torch, gen, model, default_from: int,
+                       device="cuda") -> dict:
+    """Phase 38 (a): K1 (3xTF32) and its one-pass bf16 mode against their
+    plain versions, with the epilogue, at the slab shapes the bands of
+    ``SHARDED_LAYOUTS`` give them (the one-pass mode at the layers the
+    "default" schedule from `default_from` takes), each timed on the card
+    at the 512-px layer's slab beside its plain version.  On the CPU the
+    wrapper takes the plain version."""
+    from rewriting_torch.ops import upconv_blur as kup
+    kf = (0.25, 0.75, 0.75, 0.25)
+    rows, worst = [], {"highest": 0.0, "default": 0.0}
+    for n_data, n_sp in SHARDED_LAYOUTS:
+        batch = SHARDED_BATCH // n_data
+        for tier, min_res in (("highest", 0), ("default", default_from)):
+            for b, i, h, w, o in band_slab_shapes(model, batch, n_sp,
+                                                  min_res):
+                x = torch.randn((b, i, h, w), generator=gen, device=device)
+                wf = torch.randn((o, i, 3, 3), generator=gen,
+                                 device=device) / (3.0 * i ** 0.5)
+                epi = (torch.rand((b, o), generator=gen,
+                                  device=device) + 0.5,
+                       torch.randn((b, 1, 2 * h, 2 * w), generator=gen,
+                                   device=device),
+                       torch.randn((o,), generator=gen, device=device))
+                got = kup.upconv_blur(x, wf, kf, *epi, tier=tier)
+                want = kup.upconv_blur_reference(x, wf, kf, *epi, tier=tier)
+                rel = rel_diff(got, want)
+                worst[tier] = max(worst[tier], rel)
+                row = {"layout": f"{n_data}x{n_sp}", "tier": tier,
+                       "shape": [b, i, h, w, o], "rel_err": rel}
+                if (n_data, n_sp) == SHARDED_LAYOUTS[0] and w == 256 and \
+                        torch.device(device).type == "cuda":
+                    row["ms"] = time_ms(torch, lambda: kup.upconv_blur_cuda(
+                        x, wf, kf, *epi, tier=tier))
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: kup.upconv_blur_reference(
+                            x, wf, kf, *epi, tier=tier))
+                rows.append(row)
+                limit = UPCONV_RTOL if tier == "highest" else \
+                    BF16_UPCONV_RTOL
+                print(f"phase 38 K1 {tier} on a {row['layout']} band's slab "
+                      f"{(b, i, h, w)} -> {o}: {rel:.3e} of max from its "
+                      f"plain version (limit {limit})"
+                      + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                         " ms" if "ms" in row else ""))
+                if tuple(got.shape) != (b, o, 2 * h, 2 * w) or \
+                        not rel <= limit:
+                    raise AssertionError(f"K1 {tier} at {row['shape']}: "
+                                         f"{rel}")
+                del x, wf, epi, got, want
+    return {"rows": rows, "max_rel_err": worst}
+
+
+def _placed(t, stage, shape, where, model):
+    """The positions of the whole map `t` (one device's) that a rank's
+    share of `shape` holds at `stage`: its rows of the batch, a tp row
+    layer's channel slice, a band's rows and halo (zeros past the image's
+    edges).  `where`: ((index, size) of the data, model and spatial
+    axes)."""
+    import torch.nn.functional as F
+
+    from rewriting_torch.models.stylegan2 import stage_resolution
+    (di, dn), (mi, mn), (si, sn) = where
+    rows = t.shape[0] // dn
+    t = t[di * rows:(di + 1) * rows]
+    if shape[1] < t.shape[1]:
+        t = t[:, mi * shape[1]:(mi + 1) * shape[1]]
+    res = stage_resolution(stage)
+    if sn > 1 and res % sn == 0 and res // sn >= 1:
+        a, b = si * res // sn, (si + 1) * res // sn
+        lo, hi = (((a - 2) // 2, (b + 1) // 2 + 1)
+                  if model._param_specs[stage][4] else (a - 1, b + 1))
+        t = F.pad(t, (0, 0, 2, 2))[:, :, lo + 2:hi + 2]
+    return t
+
+
+def sharded_job(spec: dict) -> dict:
+    """One rank of phase 38's job (every rank runs it): faces-1024 from the
+    zoo with nonzero noise strengths, at ``SHARDED_BATCH``.  Each sharded
+    run has the launch counts set to 0 just before it and read just after,
+    and is held against this rank's own one-device forward of the same
+    global batch: the bands of ``SHARDED_LAYOUTS`` with K1's gate on at
+    every layer, then under the "default" schedule too; then under the
+    int8 schedule dp, tp and the 1 x 4 bands, with every quantization
+    recorded and its int8 values counted against one device's.  Raises on
+    a failed check; returns {run: its numbers}."""
+    import torch
+    import torch.distributed as dist
+
+    from rewriting_torch.models import zoo
+    from rewriting_torch.models.stylegan2 import (SeqStyleGAN2,
+                                                  mixed_precision_schedule)
+    from rewriting_torch.ops import blur2d as kblur
+    from rewriting_torch.ops import precision, quant
+    from rewriting_torch.ops import upconv_blur as kup
+    from rewriting_torch.ops import upsample2x as kup2
+    from rewriting_torch.ops.precision import apply_parity_tier
+    from rewriting_torch.parallel import (comm, make_mesh, make_mesh_2d,
+                                          sharded_sampler,
+                                          spatial_sharded_sampler,
+                                          tensor_shard_params,
+                                          tensor_sharded_sampler)
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    apply_parity_tier()
+    device = comm.default_device()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if spec.get("model"):
+        model = SeqStyleGAN2(**spec["model"], device=device)
+        params = model.init_params(seed=0)
+    else:
+        with weights_env(spec["weights"]):
+            model, params = zoo.load_seq_stylegan("faces", device=device)
+    params = noisy_params(params)
+    z = standard_z_sample(SHARDED_BATCH, model.z_dim, seed=38)
+    noise = model.prepare_noise(SHARDED_BATCH)
+    out = {}
+
+    def counts():
+        return {"k1": kup.launches, "k1_bf16": kup.launches_bf16,
+                "k2": kblur.launches, "k2_general": kblur.general_launches,
+                "k3": kup2.launches + kup2.general_launches,
+                "built": comm.built}
+
+    def timed(fn):
+        kup.launches = kup.launches_bf16 = kblur.launches = 0
+        kblur.general_launches = kup2.launches = kup2.general_launches = 0
+        comm.built = 0
+        sync(device)
+        t1 = time.time()
+        y = fn()
+        sync(device)
+        return y, time.time() - t1, counts()
+
+    def banded(mesh):
+        def run():
+            return spatial_sharded_sampler(model, mesh)(params, z, noise)
+
+        def whole(block):
+            rows = comm.all_gather(block, mesh.group("spatial"), dim=1)
+            return comm.all_gather(rows, mesh.group("data"))
+        return run, whole
+
+    meshes = {f"{d}x{s}": make_mesh_2d(d, s) for d, s in SHARDED_LAYOUTS}
+    kup.set_fused_upconv("on", min_res=0)
+    try:
+        for name, schedule in (("k1", None),
+                               ("k1_default", spec["default_from"])):
+            precision.set_precision_schedule(
+                None if schedule is None
+                else mixed_precision_schedule(schedule))
+            try:
+                with torch.no_grad():
+                    single = model(params, z, noise)
+                for layout, mesh in meshes.items():
+                    run, whole = banded(mesh)
+                    run()                           # warm
+                    block, secs, n = timed(run)
+                    images = whole(block)
+                    out[f"sp_{name}_{layout}"] = {
+                        "s": secs, "images_per_s": SHARDED_BATCH / secs,
+                        "block": list(block.shape),
+                        "rel": _rel(images, single),
+                        "psnr": psnr(images.float(), single.float()), **n}
+                    del block, images
+            finally:
+                precision.set_precision_schedule(None)
+            del single
+    finally:
+        kup.set_fused_upconv("off", min_res=256)
+
+    # int8: dp, tp and the 1 x 4 bands, each quantization recorded
+    records = []
+    plain = quant.quantize_activation
+
+    def recorded(x):
+        x_i8, scale = plain(x)
+        records.append((precision._CURRENT_STAGE.get(), x_i8, scale, x))
+        return x_i8, scale
+
+    def taken(fn):
+        records.clear()
+        y, secs, n = timed(fn)
+        got = list(records)
+        records.clear()
+        return y, secs, n, got
+
+    data = make_mesh()
+    mt = make_mesh(axis="model")
+    local = tensor_shard_params(model, params, mt, axis="model")
+    cases = (
+        ("dp", ((rank, world), (0, 1), (0, 1)),
+         lambda: sharded_sampler(model, data)(params, z, noise),
+         lambda y: comm.all_gather(y, data.group("data"))),
+        ("tp", ((0, 1), (rank, world), (0, 1)),
+         lambda: tensor_sharded_sampler(model, mt)(local, z, noise),
+         lambda y: y),
+        ("sp_1x4", ((0, 1), (0, 1), (rank, world)),
+         banded(meshes["1x4"])[0], banded(meshes["1x4"])[1]))
+    quant.quantize_activation = recorded
+    precision.set_precision_schedule(mixed_precision_schedule(
+        spec["int8_from"], tier="int8"))
+    try:
+        with torch.no_grad():
+            single, _, _, ref = taken(lambda: model(params, z, noise))
+        for name, where, run, whole in cases:
+            run()                                   # warm
+            y, secs, n, got = taken(run)
+            images = whole(y)
+            if [r[0] for r in got] != [r[0] for r in ref]:
+                raise AssertionError(f"int8 {name} quantized at "
+                                     f"{[r[0] for r in got]}, one device at "
+                                     f"{[r[0] for r in ref]}")
+            differ, margin = [], []
+            for (stage, q1, s1, x1), (_, q, _, _) in zip(ref, got):
+                apart = _placed(q1, stage, q.shape, where, model) != q
+                x1 = _placed(x1, stage, q.shape, where, model)
+                # how near one device's value lies to a rounding tie
+                half = ((x1.abs() / s1) % 1.0 - 0.5).abs()[apart]
+                differ.append(int(apart.sum()))
+                margin.append(float(half.max()) if half.numel() else 0.0)
+            scale_rel = max(abs(float(r[2]) - float(g[2])) / float(r[2])
+                            for r, g in zip(ref, got))
+            out[f"int8_{name}"] = {
+                "s": secs, "images_per_s": SHARDED_BATCH / secs,
+                "stages": [r[0] for r in ref], "int8_differ": differ,
+                "tie_margin": margin,
+                "int8_values": [int(g[1].numel()) for g in got],
+                "scale_rel": scale_rel, "rel": _rel(images, single),
+                "psnr": psnr(images.float(), single.float()), **n}
+            del y, images, got
+    finally:
+        precision.set_precision_schedule(None)
+        quant.quantize_activation = plain
+    return out
+
+
+def check_sharded_faces(weights: str, device="cuda", model=None,
+                        default_from: int = SHARDED_DEFAULT_FROM,
+                        int8_from: int = SHARDED_INT8_FROM,
+                        timeout_s: float = MESH_JOB_TIMEOUT) -> dict:
+    """Phase 38: the sharded samplers at faces-1024 full width (the seeded
+    ``stylegan2_faces.pt`` in `weights`, through the zoo), batch
+    ``SHARDED_BATCH``: (a) K1 and its one-pass mode against their plain
+    versions at the bands' slab shapes; then a job of 4 ranks sharing this
+    card over gloo (:func:`sharded_job`): (b) the 1 x 4 and 2 x 2 bands
+    with K1's gate on at every layer against one device's
+    ``pipeline_fast`` within ``SHARDED_RTOL`` of max, and under the
+    "default" schedule within ``SHARDED_DEFAULT_RTOL``; (c) int8 on dp, tp
+    and the 1 x 4 bands against one device's int8 forward, the int8 values
+    that differ counted and PSNR above ``SHARDED_INT8_PSNR``; (d) each
+    rank's K1, K1 one-pass and K2 launches, more than 0 where the gate
+    passes (K2 where it is off).  Prints each rank's numbers, whose times
+    are ranks sharing one card and not a scaling figure.  Runs on the card
+    unless given ``device="cpu"`` (with `model`, the keyword arguments of a
+    smaller ``SeqStyleGAN2`` with seeded weights, and the schedules' least
+    resolutions), where the kernels are their plain versions."""
+    import torch
+
+    from rewriting_torch.models.stylegan2 import SeqStyleGAN2
+    from rewriting_torch.parallel import comm
+    from rewriting_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    t1 = time.time()
+    gen = torch.Generator(device=device).manual_seed(38)
+    shape = model or {"size": 1024, "style_dim": 512, "n_mlp": 8,
+                      "channel_multiplier": 2}
+    kernels = check_band_kernels(torch, gen, SeqStyleGAN2(**shape,
+                                                          device=device),
+                                 default_from, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        device = torch.device("cuda", torch.cuda.current_device())
+    outs = comm.spawn(sharded_job, 4, device=str(device), backend="gloo",
+                      timeout_s=timeout_s, args=({
+                          "weights": weights, "model": model,
+                          "default_from": default_from,
+                          "int8_from": int8_from},))
+    for rank, out in enumerate(outs):
+        for name, n in out.items():
+            print(f"phase 38, rank {rank}, {name}: {n['s']:.3f} s; "
+                  + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                              else f"{k} {v}" for k, v in n.items()
+                              if k not in ("s", "stages")))
+    for rank, out in enumerate(outs):
+        for name, n in out.items():
+            if name.startswith("sp_k1"):
+                limit = (SHARDED_DEFAULT_RTOL if "default" in name
+                         else SHARDED_RTOL)
+                ok = n["rel"] <= limit
+                launched = n["k1"] > 0 and ("default" not in name
+                                            or n["k1_bf16"] > 0)
+            else:
+                ok = (n["psnr"] >= SHARDED_INT8_PSNR
+                      and n["scale_rel"] <= SHARDED_SCALE_RTOL)
+                launched = n["k2"] > 0
+            # the launch counts are the card's (the CPU runs the plain
+            # versions); no path may launch K3 or the general K2
+            if device.type == "cuda" and not (
+                    launched and not n["k3"] and not n["k2_general"]):
+                ok = False
+            if not ok:
+                raise AssertionError(f"phase 38 rank {rank} {name}: {n}")
+    # the first int8 stage where any rank's values differ from one
+    # device's: every such value a tie (a tie that flips on one rank moves
+    # every rank's next stage)
+    for name in (n for n in outs[0] if n.startswith("int8")):
+        stages = outs[0][name]["stages"]
+        first = next((i for i in range(len(stages))
+                      if any(o[name]["int8_differ"][i] for o in outs)), None)
+        if first is None:
+            print(f"phase 38 {name}: no int8 value differs from one device's")
+            continue
+        worst = max(o[name]["tie_margin"][first] for o in outs)
+        print(f"phase 38 {name}: first differing int8 values at "
+              f"{stages[first]}, "
+              f"{sum(o[name]['int8_differ'][first] for o in outs)} of them, "
+              f"each within {worst:.3e} of a quantum's half (limit "
+              f"{SHARDED_TIE})")
+        if not worst <= SHARDED_TIE:
+            raise AssertionError(f"phase 38 {name}: int8 values differ "
+                                 f"{worst} from a tie at {stages[first]}")
+    return {"s": time.time() - t1, "kernels": kernels, "ranks": outs}
+
+
+def add_slice15(kernels: dict, sharded: dict) -> None:
+    """Phase 38 into the kernels line: each kernel's launches on each run
+    of the job, rank by rank, and K1's errors at the bands' slabs."""
+    runs = sharded["ranks"][0]
+    for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                      ("upconv_blur_bf16", "k1_bf16"),
+                      ("upsample2x", "k3")):
+        kernels[name]["slice15_launches"] = {
+            run: [out[run][key] for out in sharded["ranks"]] for run in runs}
+    worst = sharded["kernels"]["max_rel_err"]
+    kernels["upconv_blur"]["slice15_slab_max_rel_err"] = worst["highest"]
+    kernels["upconv_blur_bf16"]["slice15_slab_max_rel_err"] = \
+        worst["default"]
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -5177,6 +5580,14 @@ def main() -> int:
             kernels[name]["nbb_launches"] = launches37[key]
         print(json.dumps({"nbb": nbbres}))
         phase("37 NBB copy-paste baseline at church-256", t0)
+
+        # 38. the sharded samplers at faces-1024: K1 on the bands, int8 on
+        # dp, tp and the bands, 4 ranks sharing the card ------------------
+        t0 = time.time()
+        sharded = check_sharded_faces(weights9)
+        add_slice15(kernels, sharded)
+        print(json.dumps({"sharded_faces": sharded}))
+        phase("38 sharded paths at faces-1024", t0)
     finally:
         work.cleanup()
         keep.cleanup()

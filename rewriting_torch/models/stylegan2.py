@@ -196,21 +196,32 @@ def modconv_linear(x: torch.Tensor, w: torch.Tensor, upsample: bool,
 
 
 def modconv_w8a8(x: torch.Tensor, w: torch.Tensor, upsample: bool,
-                 kernel_size: int) -> torch.Tensor:
+                 kernel_size: int, weight_max=None,
+                 row_pad: Optional[int] = None) -> torch.Tensor:
     """:func:`modconv_linear` on the int8 core (JAX package :186-209): the
     weight quantized per output channel, the map per tensor; at an
     upsampling layer the lhs-dilated conv with the flipped kernel and k-1
-    padding."""
+    padding.  ``weight_max`` (``parallel/comm.max_over``) marks `w` as one
+    rank's input channels of a row-parallel weight: each output channel's
+    scale is then the max over every rank's share.  ``row_pad`` replaces
+    the 3x3 conv's padding of the rows (a band that brings its own halo
+    takes 0)."""
     if upsample:
         w = torch.flip(w, (-2, -1))
         pad, dilation = ((kernel_size - 1,) * 2,) * 2, (2, 2)
     else:
-        pad, dilation = ((kernel_size // 2,) * 2,) * 2, None
-    w_i8, w_scale = quantize_weight_per_channel(w, axis=0)
+        p = kernel_size // 2
+        pad, dilation = ((p if row_pad is None else row_pad,) * 2,
+                         (p, p)), None
+    w_i8, w_scale = quantize_weight_per_channel(w, axis=0,
+                                                reduce_max=weight_max)
     return conv2d_w8a8(x, w_i8, w_scale, padding=pad, lhs_dilation=dilation)
 
 
-def _make_dconv(in_c, kernel_size, upsample):
+def _make_dconv(in_c, kernel_size, upsample, int8=True):
+    """The seq dconv; ``int8=False`` keeps an int8 stage's conv at "default"
+    (the s2d tail's convs have no int8 core, and tp and the spatial bands
+    run the tail's seq stages in its place)."""
     scale = 1.0 / math.sqrt(in_c * kernel_size ** 2)
 
     def fn(params, d: DataBag) -> DataBag:
@@ -221,7 +232,8 @@ def _make_dconv(in_c, kernel_size, upsample):
         g = weight.shape[0]
         if g == 1:
             w = weight[0] * scale
-            conv = modconv_w8a8 if int8_active() else modconv_linear
+            conv = modconv_w8a8 if int8 and int8_active() \
+                else modconv_linear
             out = conv(x, w, upsample, kernel_size)
         elif int8_active():
             raise ValueError("the int8 tier takes one dconv weight, got a "

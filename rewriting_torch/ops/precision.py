@@ -22,8 +22,9 @@ tiers are lax precisions there, which the TPU reads.  On Hopper they mean:
   one-pass bf16 mode.  PyTorch's bf16 convolutions and matmuls return
   their fp32 sums rounded to bf16, which :func:`tiered` widens to fp32 at
   once: one bf16 rounding of each output that the TPU's fp32 accumulator
-  output does not have.  Activations stay fp32 between ops, as in the JAX
-  package.
+  output does not have.  A sum split over ranks (tp's row layers) takes
+  that rounding once, after its all-reduce (:func:`tiered_sum`).
+  Activations stay fp32 between ops, as in the JAX package.
 - ``"int8"``: ``ops/quant.conv2d_w8a8`` at the dconv sites
   (``models/stylegan2._make_dconv``), ``"default"`` for every other op of
   the stage.
@@ -162,6 +163,19 @@ def tiered(fn, *tensors, **kwargs):
     if get_precision() != "default":
         return fn(*tensors, **kwargs)
     return fn(*(t.to(torch.bfloat16) for t in tensors), **kwargs).float()
+
+
+def tiered_sum(fn, reduce, *tensors, **kwargs):
+    """``reduce(fn(*tensors, **kwargs))``, where `fn` computes this rank's
+    part of a sum that `reduce` completes over ranks (an all-reduce), at
+    the current tier as one call on the whole computes it: under
+    "default" (and "int8") the operands rounded to bf16 and the part
+    computed and reduced in fp32, then the sum rounded to bf16 once, where
+    :func:`tiered` would round each rank's part."""
+    if get_precision() != "default":
+        return reduce(fn(*tensors, **kwargs))
+    part = fn(*(t.to(torch.bfloat16).float() for t in tensors), **kwargs)
+    return reduce(part).to(torch.bfloat16).float()
 
 
 def cast_params(tree, dtype):

@@ -16,12 +16,25 @@ alike; its operands are zero-padded to that op's shape rules (more than
 the same integers, exact while every sum stays below 2**53.  Nothing here
 falls back to a float convolution.
 
+Under the JAX package's sharded samplers the compiler keeps one device's
+semantics, so a per-tensor or per-channel max spans the whole tensor
+however it is split.  The port's sharded paths hold a share of it on each
+rank, and say so with :func:`whole_tensor_scales`: within it the
+activation scale is the max over every rank's share (an all-reduce the
+caller supplies, ``parallel/comm.max_over``); an empty share adds 0, and
+the ``_EPS`` floor applies to the whole max.  A weight split over its
+input channels (tp's row layers) takes its per-output-channel scale the
+same way, through ``reduce_max`` of :func:`quantize_weight_per_channel`.
+Outside the scope nothing changes.
+
 Layout: NCHW maps, OIHW weights.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,24 +44,56 @@ _QMAX = 127.0
 # the least scale: an all-zero tensor quantizes to zeros, not inf or nan
 _EPS = 1e-12
 
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+# the max over the ranks holding the other shares of an activation, set by
+# whole_tensor_scales
+_REDUCE_MAX: contextvars.ContextVar = contextvars.ContextVar(
+    "quant_reduce_max", default=None)
 
-def quantize_weight_per_channel(w: torch.Tensor, axis: int = 0):
+
+@contextlib.contextmanager
+def whole_tensor_scales(reduce_max: Reduce):
+    """Within, every map :func:`quantize_activation` sees is this rank's
+    share of a map split across ranks, and ``reduce_max(t)`` returns the
+    elementwise max of `t` over the ranks holding the shares (an
+    all-reduce every one of them makes at the same point): the scale is
+    the whole map's, as one device computes it."""
+    token = _REDUCE_MAX.set(reduce_max)
+    try:
+        yield
+    finally:
+        _REDUCE_MAX.reset(token)
+
+
+def quantize_weight_per_channel(w: torch.Tensor, axis: int = 0,
+                                reduce_max: Optional[Reduce] = None):
     """``(w_i8, scale)``: `w` in int8 with one fp32 scale for each slice of
     `axis`; ``scale`` keeps the other axes as size 1, so ``w_i8 * scale``
-    broadcasts back to the dequantized weight."""
+    broadcasts back to the dequantized weight.  With ``reduce_max`` `w` is
+    one rank's share of a weight split along another axis, and each slice's
+    max is taken over every share."""
     w = w.float()
     axis = axis % w.dim()
     dims = tuple(i for i in range(w.dim()) if i != axis)
-    scale = torch.clamp_min(torch.amax(torch.abs(w), dim=dims, keepdim=True),
-                            _EPS) / _QMAX
+    peak = torch.amax(torch.abs(w), dim=dims, keepdim=True)
+    if reduce_max is not None:
+        peak = reduce_max(peak.contiguous())
+    scale = torch.clamp_min(peak, _EPS) / _QMAX
     w_i8 = torch.clamp(torch.round(w / scale), -_QMAX, _QMAX).to(torch.int8)
     return w_i8, scale
 
 
 def quantize_activation(x: torch.Tensor):
     """``(x_i8, scale)``: dynamic symmetric per-tensor quantization, the
-    scale an fp32 scalar tensor."""
-    scale = torch.clamp_min(torch.amax(torch.abs(x)).float(), _EPS) / _QMAX
+    scale an fp32 scalar tensor; within :func:`whole_tensor_scales` the
+    whole split map's."""
+    # an empty share adds 0 to the max
+    peak = (torch.amax(torch.abs(x)).float() if x.numel()
+            else x.new_zeros((), dtype=torch.float32))
+    reduce_max = _REDUCE_MAX.get()
+    if reduce_max is not None:
+        peak = reduce_max(peak.reshape(1))[0]
+    scale = torch.clamp_min(peak, _EPS) / _QMAX
     x_i8 = torch.clamp(torch.round(x.float() / scale), -_QMAX,
                        _QMAX).to(torch.int8)
     return x_i8, scale

@@ -5,6 +5,9 @@ compiler insert the collectives.  The port runs one process per rank (set
 up by ``torchrun`` or by :func:`spawn`), and its parallel modules call the
 few collectives they need from here: all-reduce, all-gather, broadcast, the
 pipeline's hop to the next stage and the spatial bands' halo exchange.
+An all-reduce takes the sum or the maximum (:func:`max_over`, the int8
+tier's whole-tensor scales); both backends take either, gloo on CUDA
+tensors too.
 
 A :class:`Group` is the ranks of one mesh axis.  On an NCCL group, and on a
 gloo group holding CPU tensors, every operation is the backend's own.  A
@@ -42,6 +45,9 @@ built = 0
 
 # the device init_process_group gave this process's rank
 _device: Optional[torch.device] = None
+
+# the reductions all_reduce takes
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def free_port() -> int:
@@ -221,11 +227,30 @@ def same_device(a, b) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
-def all_reduce(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """The sum over the group's ranks, in place; returns `t`."""
+def all_reduce(t: torch.Tensor, group: Group, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (or, with ``op="max"``, the maximum) over the group's ranks,
+    in place; returns `t`."""
+    if op not in _OPS:
+        raise ValueError(f"all_reduce op {op!r}: one of {tuple(_OPS)}")
     if group.size > 1:
-        dist.all_reduce(t, group=group.pg)
+        dist.all_reduce(t, op=_OPS[op], group=group.pg)
     return t
+
+
+def max_over(*groups: Optional[Group]):
+    """``reduce(t)``: the elementwise maximum of `t` over the ranks of all
+    the `groups` (None and groups of one rank are skipped), all-reduced in
+    place one group after the other; every rank of them calls it at the
+    same point.  The sharded samplers hand it to ``ops.quant.
+    whole_tensor_scales``."""
+    live = tuple(g for g in groups if g is not None and g.size > 1)
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        for g in live:
+            all_reduce(t, g, op="max")
+        return t
+    return reduce
 
 
 def broadcast(t: torch.Tensor, src: int, group: Group) -> torch.Tensor:

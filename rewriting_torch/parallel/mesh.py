@@ -27,16 +27,26 @@ equal the single-device ones.
 - :func:`vmapped_multi_edit`: the edits split over the ranks, each solved
   by the caller's function, gathered back in order.
 - :func:`spatial_sharded_sampler`: batch over ``data`` and image rows over
-  ``spatial``.  Each rank of the spatial axis holds a band of rows of the
-  maps that are tall enough (at least one row a rank: the halo every
-  stage needs); the lower resolutions run replicated, and the first
-  banded stage takes its rows from the whole map.  Before each 3x3 conv,
-  up-conv and RGB-skip upsample the band gets one row from each
-  neighbour (``comm.halo_rows``), zeros at the image's true edges; the
-  blur after an up-conv runs on the band padded in width only, so K2
-  launches with a pad of 0.  It runs the seq stages, which
-  ``pipeline_fast`` equals with K1 off; with K1's gate on it raises,
-  naming the gate.
+  ``spatial``, through ``pipeline_fast`` as one device runs it.  Each
+  rank of the spatial axis holds a band of rows of the maps that are tall
+  enough (at least one row a rank: the halo every stage needs); the lower
+  resolutions run replicated (K1 on the whole map where its gate
+  passes), and the first banded stage takes its rows from the whole map.
+  Before each 3x3 conv, up-conv and RGB-skip upsample the band gets one
+  row from each neighbour (``comm.halo_rows``), zeros at the image's true
+  edges; the blur after a seq up-conv runs on the band padded in width
+  only, so K2 launches with a pad of 0.  Where K1's gate passes, K1
+  launches on the band's input rows and one more on each side, and the
+  output rows its zero padding at the slab's edges reaches are dropped.
+  In place of the s2d tail the bands run its seq stages, as
+  :func:`parallel.tensor.tp_pipeline` does (the tail gains nothing on an
+  H100), with the tail's dconvs at "default" in an int8 stage, as the
+  tail's convs are on one device.
+
+Under an int8 stage each rank quantizes its share of a map with the whole
+map's scale: the samplers install ``ops/quant.whole_tensor_scales`` with
+the max over the axes the map is split across (``comm.max_over``), as the
+JAX package's single-device semantics under its mesh give.
 """
 
 from __future__ import annotations
@@ -50,11 +60,14 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline, tree_map
-from ..models.stylegan2 import (_demod, _reference_noise, modconv_linear,
-                                noise_key, stage_resolution)
+from ..models.stylegan2 import (_demod, _make_dconv, _reference_noise,
+                                modconv_linear, modconv_w8a8, noise_key,
+                                stage_resolution)
 from ..ops import make_kernel
-from ..ops.precision import int8_active, tiered
-from ..ops.upconv_blur import fused_upconv_active
+from ..ops.precision import get_precision, int8_active, tiered
+from ..ops.quant import whole_tensor_scales
+from ..ops.upconv_blur import (fused_epilogue_active, fused_upconv_active,
+                               upconv_blur)
 from ..ops.upfirdn2d import apply_blur, blur_taps
 from . import comm
 from .comm import gather_in_order, same_device, share, uneven_counts
@@ -160,14 +173,17 @@ def sharded_sampler(model, mesh: Mesh, axis: str = "data"):
     _check_device(model, mesh)
     group = mesh.group(axis)
     noisy = hasattr(model, "prepare_noise")
+    reduce_max = comm.max_over(group)
 
     def sample(params, z, noise=None):
         z = torch.as_tensor(z)
         lo, hi = share(z.shape[0], group)
-        if not noisy:
-            return model(params, z[lo:hi])
-        return model(params, z[lo:hi],
-                     _noise_rows(model, noise, z.shape[0], lo, hi))
+        # an int8 stage's scale is the global batch's, as on one device
+        with whole_tensor_scales(reduce_max):
+            if not noisy:
+                return model(params, z[lo:hi])
+            return model(params, z[lo:hi],
+                         _noise_rows(model, noise, z.shape[0], lo, hi))
     return sample
 
 
@@ -260,45 +276,102 @@ class _Bands:
         return F.pad(piece, (0, 0, top, bottom)) if top or bottom else piece
 
 
-def _check_not_int8() -> None:
-    if int8_active():
-        raise ValueError("the int8 tier's per-tensor activation scale needs "
-                         "the whole map: the spatial bands do not take it")
-
-
-def _band_conv(bands: _Bands, in_c: int, res: int):
+def _band_conv(bands: _Bands, in_c: int, res: int, int8: bool = True):
     """The dconv of a 3x3 layer on this rank's band: its rows and one more
-    on each side, padded in width only."""
+    on each side, padded in width only; in an int8 stage on the int8 core
+    with the whole map's scale (the sampler's ``whole_tensor_scales``),
+    unless ``int8=False`` (an s2d tail layer's)."""
     scale = 1.0 / math.sqrt(in_c * 9)
 
     def fn(params, d: DataBag) -> DataBag:
-        _check_not_int8()
         a, b = bands.span(res)
         x = bands.rows(d["fmap"], a - HALO, b + HALO, res)
         w = params["weight"][0] * scale
-        out = tiered(F.conv2d, x, w, padding=(0, 1))
+        if int8 and int8_active():
+            out = modconv_w8a8(x, w, False, 3, row_pad=0)
+        else:
+            out = tiered(F.conv2d, x, w, padding=(0, 1))
         return DataBag(d, fmap=out * _demod(w, d["style"])[:, :, None, None])
     return fn
 
 
-def _band_upconv(bands: _Bands, in_c: int, res: int):
+def _slab(bands: _Bands, x: torch.Tensor, res: int):
+    """(the input rows [lo, hi] of an up-conv's `res`-row output band [a,
+    b), lo): lo = (a-2)//2, hi = (b+1)//2, zeros past the image's edges.
+    The stride-2 conv of these rows gives the full-width conv's rows
+    [2 lo, 2 hi + 2], of which [a-1, b+1] are all that the 4-tap blur
+    (pad 1) of rows [a, b) reads."""
+    a, b = bands.span(res)
+    lo, hi = (a - 2) // 2, (b + 1) // 2
+    return bands.rows(x, lo, hi + 1, res // 2), lo
+
+
+def _band_upconv(bands: _Bands, in_c: int, res: int, int8: bool = True):
     """The stride-2 transposed dconv of an upsampling layer for this rank's
-    band [a, b) of its `res`-row output: the input rows [(a-2)//2,
-    (b+1)//2] give the full-width conv's rows [a-1, b+1], all that the
-    4-tap blur (pad 1) of rows [a, b) reads."""
+    band [a, b) of its `res`-row output, from the input rows of
+    :func:`_slab`: its rows [a-1, b+1], for the blur; in an int8 stage on
+    the int8 core with the whole map's scale, unless ``int8=False``."""
     scale = 1.0 / math.sqrt(in_c * 9)
 
     def fn(params, d: DataBag) -> DataBag:
-        _check_not_int8()
         a, b = bands.span(res)
-        lo, hi = (a - 2) // 2, (b + 1) // 2
-        x = bands.rows(d["fmap"], lo, hi + 1, res // 2)
+        x, lo = _slab(bands, d["fmap"], res)
         w = params["weight"][0] * scale
-        y = modconv_linear(x, w, True, 3)            # rows 2*lo ...
+        conv = modconv_w8a8 if int8 and int8_active() else modconv_linear
+        y = conv(x, w, True, 3)                      # rows 2*lo ...
         start = a - 1 - 2 * lo
         y = y[:, :, start:start + (b - a) + 3]
         return DataBag(d, fmap=y * _demod(w, d["style"])[:, :, None, None])
     return fn
+
+
+def _band_fused_upconv(bands: _Bands, prefix: str, in_c: int, out_c: int,
+                       res: int, blur_kernel, seq_fn):
+    """``pipeline_fast``'s fused up-conv for this rank's band [a, b) of its
+    `res`-row output: where K1's gate passes, K1 launched on the input rows
+    of :func:`_slab` (zeros past the image's edges, as K1's own padding
+    gives there), and of its 2 (hi - lo + 1) output rows those [a - 2 lo,
+    b - 2 lo) kept, which K1's zero padding at the slab's edges does not
+    reach; with the epilogue, the noise is the slab's rows of the global
+    noise map, zeros outside the image.  At the stage's tier, as
+    ``pipeline_fast``: the one-pass bf16 mode under "default" and "int8".
+    Else `seq_fn`, the band's seq up-conv.  Takes the full params."""
+    scale = 1.0 / math.sqrt(in_c * 9)
+    k = np.asarray(blur_kernel, np.float64)
+    kf = tuple(float(v) for v in (k / k.sum()) * 2.0)
+
+    def fn(params, d: DataBag) -> DataBag:
+        own = params.get(f"{prefix}.mconv.dconv", {})
+        if not fused_upconv_active(in_c, out_c, res):
+            return seq_fn(own, d)
+        a, b = bands.span(res)
+        x, lo = _slab(bands, d["fmap"], res)
+        x = x.contiguous()
+        w = own["weight"][0] * scale
+        wf = torch.flip(w, (-2, -1))
+        demod = _demod(w, d["style"])
+        tier = get_precision()
+        keep = slice(a - 2 * lo, b - 2 * lo)
+        if not fused_epilogue_active(in_c, out_c, res):
+            y = upconv_blur(x, wf, kf, tier=tier)[:, :, keep]
+            return DataBag(d, fmap=y * demod[:, :, None, None])
+        noise = bands.rows(_noise_map(d, x, res), 2 * lo,
+                           2 * lo + 2 * x.shape[2], res)
+        noise = params[f"{prefix}.noise"]["weight"] * noise
+        bias = params[f"{prefix}.activate"]["bias"]
+        y = upconv_blur(x, wf, kf, demod, noise, bias, tier=tier)
+        return DataBag(d, fmap=y[:, :, keep].contiguous())
+    fn._full_params = True
+    return fn
+
+
+def _unless(active, in_c: int, out_c: int, res: int, fn):
+    """`fn`, or the identity where K1's gate `active` (its up-conv's, or
+    its epilogue's) passes for the layer, as ``pipeline_fast``'s blur,
+    noise and activate stages do at a fused layer."""
+    def run(params, d: DataBag) -> DataBag:
+        return d if active(in_c, out_c, res) else fn(params, d)
+    return run
 
 
 def _band_blur(blur_kernel):
@@ -312,14 +385,21 @@ def _band_blur(blur_kernel):
     return fn
 
 
+def _noise_map(d: DataBag, x: torch.Tensor, res: int) -> torch.Tensor:
+    """The global `res` x `res` noise of the bag's images: its input, or
+    the reference noise."""
+    noise = d.get(noise_key(res, res))
+    if noise is None:
+        noise = _reference_noise(x.shape[0], res, res, x.device)
+    return noise
+
+
 def _band_noise(bands: _Bands, res: int):
     def fn(params, d: DataBag) -> DataBag:
         x = d["fmap"]
-        noise = d.get(noise_key(res, res))
-        if noise is None:
-            noise = _reference_noise(x.shape[0], res, res, x.device)
         a, b = bands.span(res)
-        return DataBag(d, fmap=x + params["weight"] * noise[:, :, a:b])
+        return DataBag(d, fmap=x + params["weight"]
+                       * _noise_map(d, x, res)[:, :, a:b])
     return fn
 
 
@@ -345,65 +425,76 @@ def _band_up_rgb(bands: _Bands, blur_kernel, res: int):
 
 
 def band_pipeline(model, group: comm.Group) -> StagePipeline:
-    """The seq pipeline of `model` with its stages at the banded
-    resolutions working on this rank's band of rows (spatial `group`)."""
+    """``pipeline_fast`` of `model` with its stages at the banded
+    resolutions working on this rank's band of rows (spatial `group`): the
+    seq stages, K1 where its gate passes (:func:`_band_fused_upconv`), and
+    the s2d tail's seq stages in its place."""
     if len(model.blur_kernel) != 4:
         raise ValueError("the spatial bands take the 4-tap blur of "
                          f"StyleGAN2, got {model.blur_kernel}")
     bands = _Bands(group)
+    tail = model._s2d_names
     overrides = {}
     for name, spec in model._param_specs.items():
+        if spec[0] != "dconv":
+            continue
         res = stage_resolution(name)
-        if spec[0] != "dconv" or not bands.banded(res):
+        in_c, out_c, upsample = spec[1], spec[2], spec[4]
+        int8 = name not in tail
+        if not bands.banded(res):
+            if not int8:
+                overrides[name] = _make_dconv(in_c, 3, upsample, int8=False)
             continue
         prefix = name[:-len(".mconv.dconv")]
-        in_c, upsample = spec[1], spec[4]
-        overrides[name] = (_band_upconv if upsample else _band_conv)(
-            bands, in_c, res)
-        overrides[f"{prefix}.noise"] = _band_noise(bands, res)
-        if upsample:
-            overrides[f"{prefix}.mconv.blur"] = _band_blur(model.blur_kernel)
+        noise = _band_noise(bands, res)
+        if not upsample:
+            overrides[name] = _band_conv(bands, in_c, res, int8)
+            overrides[f"{prefix}.noise"] = noise
+            continue
+        dconv = _band_upconv(bands, in_c, res, int8)
+        blur = _band_blur(model.blur_kernel)
+        if name in model._fast_overrides and int8:      # K1's layers
+            dconv = _band_fused_upconv(bands, prefix, in_c, out_c, res,
+                                       model.blur_kernel, dconv)
+            blur = _unless(fused_upconv_active, in_c, out_c, res, blur)
+            noise = _unless(fused_epilogue_active, in_c, out_c, res, noise)
+        overrides[name] = dconv
+        overrides[f"{prefix}.mconv.blur"] = blur
+        overrides[f"{prefix}.noise"] = noise
     for stage in model.pipeline.stages:
         res = stage_resolution(stage.name)
         if stage.name.startswith("up_rgb") and bands.banded(res):
             overrides[stage.name] = _band_up_rgb(bands, model.blur_kernel,
                                                  res)
-    return StagePipeline([Stage(s.name, overrides.get(s.name, s.fn))
-                          for s in model.pipeline.stages])
-
-
-def _check_k1_off(model) -> None:
-    for name, spec in model._param_specs.items():
-        if spec[0] == "dconv" and spec[4] and fused_upconv_active(
-                spec[1], spec[2], stage_resolution(name)):
-            raise RuntimeError(
-                "spatial_sharded_sampler runs the seq stages on bands and "
-                "has no K1 path: K1's gate (ops.upconv_blur."
-                "set_fused_upconv) is on for "
-                f"{name}; set it 'off' for spatial sampling")
+    return StagePipeline([
+        Stage(seq.name, overrides.get(seq.name,
+                                      seq.fn if seq.name in tail else s.fn))
+        for s, seq in zip(model.pipeline_fast.stages, model.pipeline.stages)])
 
 
 def spatial_sharded_sampler(model, mesh: Mesh, axis_data: str = "data",
                             axis_spatial: str = "spatial"):
     """(params, z[, noise]) -> this rank's block of the images: its rows of
     the global batch (over `axis_data`) and its band of image rows (over
-    `axis_spatial`), (B / n_data, H / n_spatial, W, 3).  Equals the
-    single-device ``model(params, z, noise)`` with K1's gate off, the
-    only state it takes."""
+    `axis_spatial`), (B / n_data, H / n_spatial, W, 3).  Computes the
+    single-device ``model(params, z, noise)``, ``pipeline_fast`` under
+    K1's gate and the precision schedule as they stand: K1 on each band's
+    slab, the s2d tail's seq stages on bands, an int8 stage's scale the
+    whole map's (over both axes)."""
     _check_device(model, mesh)
     data, spatial = mesh.group(axis_data), mesh.group(axis_spatial)
     if model.size % spatial.size:
         raise ValueError(f"{model.size} rows do not split over "
                          f"{spatial.size} ranks")
     pipe = band_pipeline(model, spatial)
+    reduce_max = comm.max_over(data, spatial)
 
     def sample(params, z, noise=None):
-        _check_k1_off(model)
         z = torch.as_tensor(z)
         lo, hi = share(z.shape[0], data)
         bag = model.make_bag(z[lo:hi], _noise_rows(model, noise, z.shape[0],
                                                    lo, hi))
-        with torch.no_grad():
+        with torch.no_grad(), whole_tensor_scales(reduce_max):
             out = pipe(params, bag)["output"]
         return out.permute(0, 2, 3, 1).contiguous()
     return sample

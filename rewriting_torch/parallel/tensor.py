@@ -20,7 +20,10 @@ and makes the collectives explicit:
   divides and before noise, bias and activation.  Under K1's gate the
   up-conv runs K1 WITHOUT its fused epilogue on the partial sums (the
   blur is linear, so it may run before the reduce); noise, bias and
-  activation follow the all-reduce.
+  activation follow the all-reduce.  In an int8 stage the partial sums
+  are dequantized with the whole weight's and the whole map's scales
+  before the all-reduce (``ops/quant.py``), as the JAX package's int32
+  sum over all input channels is.
 - ``to_rgb`` consumes a column layer's split output: weight and
   modulation split on I, and the 3-channel output all-reduced before its
   bias and the skip.
@@ -46,14 +49,16 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import DataBag, Stage, StagePipeline
 from ..models.stylegan2 import (_equal_linear, _fused_lrelu_stage,
-                                _noise_inject, _rgb_product, modconv_linear,
-                                stage_resolution)
+                                _make_dconv, _noise_inject, _rgb_product,
+                                modconv_w8a8, stage_resolution)
 from ..ops import fused_leaky_relu, make_kernel, upsample2d
 from ..ops import upconv_blur as _kup
-from ..ops.precision import int8_active, tiered
+from ..ops.precision import get_precision, int8_active, tiered, tiered_sum
+from ..ops.quant import whole_tensor_scales
 from . import comm
 from .comm import share
 from .mesh import Mesh, _check_device, _noise_rows
@@ -198,8 +203,8 @@ def _tp_style(in_dim: int, lr_mul: float, row: bool, group: comm.Group):
         if not row:
             return DataBag(d, latent=_equal_linear(params, x, scale, lr_mul,
                                                    "fused_lrelu"))
-        out = comm.all_reduce(tiered(torch.matmul, x, (w * scale).t()),
-                              group)
+        out = tiered_sum(torch.matmul, _sum_over(group), x,
+                         (w * scale).t())
         return DataBag(d, latent=fused_leaky_relu(out,
                                                   params["bias"] * lr_mul))
     return fn
@@ -220,36 +225,57 @@ def _tp_adain(group: comm.Group):
     return fn
 
 
+def _sum_over(group: comm.Group):
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(t, group)
+    return reduce
+
+
 def _row_demod(w: torch.Tensor, style: torch.Tensor, group: comm.Group):
     """rsqrt of the demodulation's sum over ALL input channels, from this
     rank's (O, I/n) share: the partial sums all-reduced first."""
-    sq = tiered(torch.matmul, style * style,
-                torch.sum(w * w, dim=(-2, -1)).t())
-    return torch.rsqrt(comm.all_reduce(sq, group) + 1e-8)
+    sq = tiered_sum(torch.matmul, _sum_over(group), style * style,
+                    torch.sum(w * w, dim=(-2, -1)).t())
+    return torch.rsqrt(sq + 1e-8)
+
+
+def _conv_part(upsample: bool):
+    """A row layer's bare conv of (B, I/n, H, W) by (O, I/n, 3, 3) in the
+    dtype it is given: ``modconv_linear`` without its tier."""
+    def conv(x, w):
+        if upsample:
+            return F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+        return F.conv2d(x, w, padding=1)
+    return conv
 
 
 def _tp_row_dconv(in_c: int, out_c: int, upsample: bool, res, fast: bool,
-                  blur_kernel, group: comm.Group):
+                  blur_kernel, group: comm.Group, int8: bool = True):
     """A row-parallel dconv: the conv of this rank's input channels, its
     partial sums and the demodulation's all-reduced, then demodulated.  On
     ``pipeline_fast``, where K1's gate passes, K1 without its epilogue
-    (conv and blur on the partial sums)."""
+    (conv and blur on the partial sums) at the stage's tier.  In an int8
+    stage the int32 partial sums are dequantized with the whole weight's
+    per-output-channel scales (the max over the ranks' shares) and the
+    whole map's activation scale (the sampler's ``whole_tensor_scales``),
+    then all-reduced: the one-device sum over all input channels, up to
+    the fp32 rounding of that sum.  ``int8=False``: an s2d tail layer's,
+    whose int8 stage computes at "default" on one device."""
     scale = 1.0 / math.sqrt(in_c * 9)
     k = np.asarray(blur_kernel, np.float64)
     kf = tuple(float(v) for v in (k / k.sum()) * 2.0)
 
     def fn(params, d: DataBag) -> DataBag:
-        if int8_active():
-            raise ValueError("the int8 tier's per-tensor activation scale "
-                             "needs the whole map: tp's row layers do not "
-                             "take it")
         w = params["weight"][0] * scale
         x = d["fmap"]
         if fast and upsample and _kup.fused_upconv_active(in_c, out_c, res):
-            y = _kup.upconv_blur(x, torch.flip(w, (-2, -1)), kf)
+            y = comm.all_reduce(_kup.upconv_blur(
+                x, torch.flip(w, (-2, -1)), kf, tier=get_precision()), group)
+        elif int8 and int8_active():
+            y = comm.all_reduce(modconv_w8a8(
+                x, w, upsample, 3, weight_max=comm.max_over(group)), group)
         else:
-            y = modconv_linear(x, w, upsample, 3)
-        y = comm.all_reduce(y, group)
+            y = tiered_sum(_conv_part(upsample), _sum_over(group), x, w)
         demod = _row_demod(w, d["style"], group)
         return DataBag(d, fmap=y * demod[:, :, None, None])
     return fn
@@ -266,9 +292,10 @@ def _tp_to_rgb(in_c: int, style_dim: int, skip: bool, blur_kernel,
         style = _equal_linear(params["modulation"], d["style"], mod_scale,
                               1.0, None)
         x = _match(d["fmap"], w.shape[1], group) * style[:, :, None, None]
-        out = tiered(_rgb_product, x, w)
         if w.shape[1] != in_c:
-            out = comm.all_reduce(out, group)
+            out = tiered_sum(_rgb_product, _sum_over(group), x, w)
+        else:
+            out = tiered(_rgb_product, x, w)
         out = out + params["bias"][None, :, None, None]
         if skip:
             prev = d["output"]
@@ -287,10 +314,12 @@ def tp_pipeline(model, group: comm.Group, fast: bool = True
     specs = {name: _group_specs(name, shapes, n, "tp")
              for name, shapes in param_shapes(model).items()}
     # pipeline_fast's s2d tail runs its seq stages under tp: the shards'
-    # partial sums are all-reduced on NCHW maps
+    # partial sums are all-reduced on NCHW maps.  Its dconvs keep the
+    # tail's tier: an int8 stage computes them at "default" as the tail's
+    # convs do on one device
+    tail = model._s2d_names if fast else set()
     base = model.pipeline_fast if fast else model.pipeline
-    base = StagePipeline([seq if fast and seq.name in model._s2d_names
-                          else s
+    base = StagePipeline([seq if seq.name in tail else s
                           for s, seq in zip(base.stages,
                                             model.pipeline.stages)])
     overrides = {}
@@ -305,9 +334,12 @@ def tp_pipeline(model, group: comm.Group, fast: bool = True
             if specs[name]["weight"][2:3] == ("tp",):          # row
                 overrides[name] = _tp_row_dconv(
                     spec[1], spec[2], spec[4], stage_resolution(name), fast,
-                    model.blur_kernel, group)
+                    model.blur_kernel, group, int8=name not in tail)
                 overrides[f"{prefix}.noise"] = _noise_inject
                 overrides[f"{prefix}.activate"] = _fused_lrelu_stage
+            elif name in tail:                                 # column
+                overrides[name] = _make_dconv(spec[1], 3, spec[4],
+                                              int8=False)
         elif spec[0] == "to_rgb":
             overrides[name] = _tp_to_rgb(spec[1], model.style_dim,
                                          name != "to_rgb1.rgb",
@@ -329,15 +361,20 @@ def tensor_sharded_sampler(model, mesh: Mesh, axis_model: str = "model",
     ``pipeline_fast`` (K1 where its gate passes, without its epilogue on
     the row layers), fast=False the seq stages."""
     _check_device(model, mesh)
-    pipe = tp_pipeline(model, mesh.group(axis_model), fast=fast)
+    group = mesh.group(axis_model)
+    pipe = tp_pipeline(model, group, fast=fast)
     data = mesh.group(axis_data) if axis_data else None
+    # an int8 stage's map is split over the batch (data) and, at a row
+    # layer, the channels (model); a column layer's is whole on the model
+    # axis, where the max over equal shares changes nothing
+    reduce_max = comm.max_over(data, group)
 
     def sample(params, z, noise=None):
         z = torch.as_tensor(z)
         lo, hi = share(z.shape[0], data) if data else (0, z.shape[0])
         bag = model.make_bag(z[lo:hi], _noise_rows(model, noise, z.shape[0],
                                                    lo, hi))
-        with torch.no_grad():
+        with torch.no_grad(), whole_tensor_scales(reduce_max):
             out = pipe(params, bag)["output"]
         return out.permute(0, 2, 3, 1).contiguous()
     return sample

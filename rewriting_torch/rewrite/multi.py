@@ -85,6 +85,10 @@ def batch_apply_edits(gw, requests: Sequence[dict], rank: int = 1,
     if mesh is None:
         return _solve(gw, requests, rank, niter, lr, return_timing)
     group = mesh.group(axis)
+    if gw.key_method == "gandissect":
+        # the key's quantiles are rank 0's cache, read by every rank at
+        # this one point: a rank's share of the goals may hold no request
+        gw.quantiles_for_units()
     error = None
     try:
         if not requests:

@@ -38,6 +38,7 @@ host numpy, as the JAX package computes them.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import random
@@ -51,6 +52,7 @@ from ..core import DataBag, leaves, tree_map
 from ..models.proggan import conv2d_grouped
 from ..models.stylegan2 import modconv_linear, params_to
 from ..ops import precision
+from ..parallel import comm
 from ..parallel.comm import same_device
 from ..stats import tally
 from ..stats.quantile import RunningQuantile
@@ -81,8 +83,10 @@ class GanRewriter:
     the ranks of its ``data`` axis: the rewriter is then built on every
     rank, each tallying its share of every z batch, and every rank holds
     the same moment (``tally.cached_second_moment``: rank 0 alone writes
-    its cache).  Under a mesh the other caches are read and written by
-    rank 0 alone; the other ranks compute those statistics uncached."""
+    its cache).  The other cached statistics (``unit_rs.npz``,
+    ``unit_rq.npz``, ``unit_cad.npz``) are rank 0's: it tallies one and
+    writes its file, and every other rank reads that file
+    (:meth:`_rank0_tally`)."""
 
     def __init__(self, model, params, zds, layernum,
                  cachedir: Optional[str] = None,
@@ -114,6 +118,7 @@ class GanRewriter:
         self.unit_rs = None
         self.unit_rq: Optional[RunningQuantile] = None
         self.cad_rq: Optional[RunningQuantile] = None
+        self._alone = False
 
         self.firstlayer, self.lastlayer = self.maplayers(layernum)
         # own copy of the params dict: edits never touch the caller's tree
@@ -221,12 +226,55 @@ class GanRewriter:
         self.params = dict(self.original_params)
 
     def rf(self, fn: str) -> Optional[str]:
-        """The cache file `fn`, or None: no cache dir, or a rank other
-        than 0 of a mesh."""
-        if self.cachedir is None or (self.mesh is not None
-                                     and dist.get_rank() != 0):
+        """The cache file `fn`, or None without a cache dir; under a mesh
+        every rank names the same file."""
+        if self.cachedir is None:
             return None
         return os.path.join(self.cachedir, fn)
+
+    @contextlib.contextmanager
+    def statistics_alone(self):
+        """Within, a statistic is tallied on this rank alone, with no
+        collective, as without a mesh: rank 0 reads or writes its cache
+        file, another rank tallies it uncached.  The server enters it for
+        the requests rank 0 serves alone.  What is tallied within is
+        dropped on leaving: every rank then holds the same statistics, so
+        all of them enter the next collective read together."""
+        old = (self._alone, self.unit_rs, self.unit_rq, self.cad_rq)
+        self._alone = True
+        try:
+            yield
+        finally:
+            self._alone, self.unit_rs, self.unit_rq, self.cad_rq = old
+
+    def _rank0_tally(self, fn: str, rows, tally_fn):
+        """``tally_fn(rows, cachefile)``, the statistic of the rows function
+        `rows`, cached as `fn`.  Under a mesh (every rank calling it at the
+        same point) rank 0 alone runs it, tallying and writing the file or
+        reading it; ``comm.agree`` then orders that write before every
+        other rank's read (and raises on every rank if rank 0 failed), and
+        each other rank reads the file: its rows function raises, so no
+        rank but 0 tallies."""
+        path = self.rf(fn)
+        if self.mesh is None or path is None:
+            return tally_fn(rows, path)
+        rank = dist.get_rank()
+        if self._alone:
+            return tally_fn(rows, path if rank == 0 else None)
+        out, error = None, None
+        if rank == 0:
+            try:
+                out = tally_fn(rows, path)
+            except Exception as e:      # noqa: BLE001 - raised on every rank
+                error = e
+        comm.agree(error, comm.Group(range(self.mesh.size), None,
+                                     self.mesh.device))
+        if rank != 0:
+            def unread(zbatch):
+                raise RuntimeError(f"rank {rank} did not read {path}, which "
+                                   "rank 0 wrote")
+            out = tally_fn(unread, path)
+        return out
 
     # -- statistics -------------------------------------------------------------
     def _key_rows(self, zbatch) -> torch.Tensor:
@@ -269,11 +317,11 @@ class GanRewriter:
         dataset, npz-cached as ``unit_rs.npz``."""
         if self.unit_rs is None:
             with precision.schedule_suspended():
-                self.unit_rs = tally.tally_mean(
-                    lambda z: torch.square(self._key_rows(z)), self.zds,
-                    batch_size=self.stats_batch_size,
-                    cachefile=self.rf("unit_rs.npz"),
-                    device=self.device).mean()
+                self.unit_rs = self._rank0_tally(
+                    "unit_rs.npz", lambda z: torch.square(self._key_rows(z)),
+                    lambda rows, path: tally.tally_mean(
+                        rows, self.zds, batch_size=self.stats_batch_size,
+                        cachefile=path, device=self.device)).mean()
         return self.unit_rs
 
     def quantiles_for_units(self) -> RunningQuantile:
@@ -281,11 +329,14 @@ class GanRewriter:
         dataset, npz-cached as ``unit_rq.npz``."""
         if self.unit_rq is None:
             with precision.schedule_suspended():
-                self.unit_rq = tally.tally_quantile(
-                    self._key_rows, self.zds,
-                    batch_size=self.stats_batch_size,
-                    cachefile=self.rf("unit_rq.npz"), device=self.device)
+                self.unit_rq = self._rank0_tally(
+                    "unit_rq.npz", self._key_rows, self._quantiles)
         return self.unit_rq
+
+    def _quantiles(self, rows, cachefile):
+        return tally.tally_quantile(rows, self.zds,
+                                    batch_size=self.stats_batch_size,
+                                    cachefile=cachefile, device=self.device)
 
     def quantiles_for_covariance_adjusted_directions(self) -> RunningQuantile:
         """Quantile sketch of the context keys adjusted through the
@@ -299,9 +350,8 @@ class GanRewriter:
                     flat.cpu().numpy(), bag), device=self.device)
 
             with precision.schedule_suspended():
-                self.cad_rq = tally.tally_quantile(
-                    rows, self.zds, batch_size=self.stats_batch_size,
-                    cachefile=self.rf("unit_cad.npz"), device=self.device)
+                self.cad_rq = self._rank0_tally("unit_cad.npz", rows,
+                                                self._quantiles)
         return self.cad_rq
 
     def _key_response(self, key: torch.Tensor, zbatch):

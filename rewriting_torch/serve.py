@@ -137,7 +137,11 @@ class EditingService:
 
     def edit(self, request, rank=1, niter=2001, piter=10, lr=0.05,
              method="insert"):
-        with self._on_device():
+        # rank 0 serves an edit alone: the statistics it reads (the erase's
+        # unit scales, the gandissect key's quantiles) take no collective
+        alone = (self.gw.statistics_alone() if self.mesh is not None
+                 else contextlib.nullcontext())
+        with self._on_device(), alone:
             if method == "fast":
                 o_imgnum, o_mask = request["object"]
                 keys = request.get("key", [request["paste"]])

@@ -308,6 +308,66 @@ def test_smoke_slice12_fails_without_cuda(no_cuda, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+_IMPORT_SHARDED = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import rewriting_torch.ops.quant
+import rewriting_torch.parallel
+from rewriting_torch.parallel import comm, dryrun, mesh, pipeline, tensor
+print(sorted(n for n, m in sys.modules.items()
+             if m is not None and n.split(".")[0] in {BLOCKED!r}))
+"""
+
+
+def test_the_sharded_paths_import_no_jax():
+    """``parallel/`` and ``ops/quant.py``, which slice 15 extends, import
+    nothing of jax or the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SHARDED], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_slice15_helpers_raise_without_cuda(no_cuda, capsys):
+    """Phase 38's helpers run on the card unless given ``device="cpu"``:
+    without CUDA they raise before starting a job, and
+    ``scripts/smoke_slice15.py`` and ``scripts/time_tp_tiers.py`` exit
+    non-zero."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chip_smoke.check_sharded_faces(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chip_smoke.check_sharded_faces(None, device="cuda")
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import smoke_slice15
+        import time_tp_tiers
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    assert smoke_slice15.main([]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+    assert time_tp_tiers.main([]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_slice15_helpers_run_on_the_cpu_when_asked():
+    """``device="cpu"`` runs phase 38's checks end to end on a 16-px model
+    (512 channels: K1's gate passes at 8 and 16 px) in a job of 4 CPU
+    ranks, the kernels their plain versions: the bands, then int8 on dp,
+    tp and the bands, every check held."""
+    out = chip_smoke.check_sharded_faces(
+        None, device="cpu", model={"size": 16, "style_dim": 32, "n_mlp": 2},
+        default_from=8, int8_from=8, timeout_s=300)
+    runs = out["ranks"][0]
+    assert sorted(runs) == sorted(
+        [f"sp_{k}_{d}x{s}" for k in ("k1", "k1_default")
+         for d, s in chip_smoke.SHARDED_LAYOUTS]
+        + ["int8_dp", "int8_tp", "int8_sp_1x4"])
+    assert all(r["int8_values"] for name, r in runs.items()
+               if name.startswith("int8"))
+    assert out["kernels"]["rows"]
+
+
 def test_smoke_slice14_fails_without_cuda(no_cuda, capsys):
     sys.path.insert(0, str(ROOT / "scripts"))
     try:

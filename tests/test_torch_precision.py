@@ -409,15 +409,36 @@ def test_upsample2d_narrow_channel_matmul_dispatch():
                                atol=2e-5, rtol=2e-5)
 
 
-def test_int8_refused_on_sharded_convs():
-    """tp's row layers and the spatial bands see a shard of the map, whose
-    per-tensor activation scale is not the whole map's: under an int8
-    stage they raise instead of quantizing otherwise."""
-    from rewriting_torch.parallel import mesh, tensor
-    fns = [tensor._tp_row_dconv(8, 8, True, 16, True, [1, 3, 3, 1], None),
-           mesh._band_conv(None, 8, 16), mesh._band_upconv(None, 8, 16)]
-    precision.set_precision_schedule(lambda name: "int8")
-    with precision.stage_scope("layer5.sconv.mconv.dconv"):
-        for fn in fns:
-            with pytest.raises(ValueError, match="int8"):
-                fn({}, DataBag())
+def test_whole_tensor_scales():
+    """Within ``whole_tensor_scales`` an activation's scale is the max over
+    every rank's share (here `reduce_max` stands for the other ranks, one
+    of whose |x| reaches 3.0), an empty share adds 0 with the ``_EPS``
+    floor kept, and outside it nothing changes; a row-parallel weight
+    takes each output channel's max over the shares the same way."""
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.uniform(-1, 1, (2, 3, 4, 4)).astype(np.float32))
+    alone = quant.quantize_activation(x)
+    seen = []
+
+    def others(t):
+        seen.append(t.clone())
+        return torch.clamp_min(t, 3.0)
+    with quant.whole_tensor_scales(others):
+        x_i8, scale = quant.quantize_activation(x)
+        empty_i8, empty_scale = quant.quantize_activation(x[:0])
+    assert float(seen[0]) == float(x.abs().max()) and float(seen[1]) == 0.0
+    assert float(scale) == float(torch.tensor(3.0) / 127.0)
+    assert torch.equal(x_i8, torch.round(x / scale).to(torch.int8))
+    assert empty_i8.shape == (0, 3, 4, 4) and float(empty_scale) == float(scale)
+    with quant.whole_tensor_scales(lambda t: t):
+        _, floor = quant.quantize_activation(torch.zeros(0, 3))
+    assert float(floor) == float(torch.tensor(quant._EPS) / 127.0)
+    again = quant.quantize_activation(x)
+    assert torch.equal(again[0], alone[0]) and torch.equal(again[1], alone[1])
+    w = torch.tensor(rng.randn(4, 6, 3, 3).astype(np.float32))
+    w_i8, w_scale = quant.quantize_weight_per_channel(
+        w[:, :3], reduce_max=lambda t: torch.maximum(
+            t, w[:, 3:].abs().amax(dim=(1, 2, 3), keepdim=True)))
+    whole_i8, whole_scale = quant.quantize_weight_per_channel(w)
+    assert torch.equal(w_scale, whole_scale)
+    assert torch.equal(w_i8, whole_i8[:, :3])
