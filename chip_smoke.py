@@ -140,7 +140,15 @@ set to 0 just before it and read just after:
   "default" schedule from 256 px, against one device's
   ``pipeline_fast``; the int8 schedule on dp, tp and the 1 x 4 bands
   against one device's, each quantization's int8 values counted; each
-  rank's launches and seconds, which are ranks sharing one card.
+  rank's launches and seconds, which are ranks sharing one card;
+- JPEG reading (``csrc/jpegdec.cpp``, host C++ built with the host
+  compiler at first use): each fixture of ``tests/data/jpeg`` against
+  PIL's decode of it stored as a PNG, 0 LSB apart; ``read_batches``
+  images/s of a 256x256 4:2:0 JPEG (on its default pool and on one
+  thread) and of its PNG twin, one decode's ms; FID's statistics
+  (phase 25's seeded Inception) and ``get_gt_samples`` of a directory of
+  64 JPEGs against the same pixels as PNGs; a truncated and a CMYK JPEG
+  refused by name.  No kernel is on this path.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -170,6 +178,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3773,7 +3782,7 @@ def check_upconv_bf16(torch, gen) -> dict:
     and the library ``conv_transpose2d`` in bf16 (the 6x6 composite
     kernel) at each, beside the bound; the tiles and the build's ptxas
     line."""
-    from rewriting_torch.ops import _build
+    from rewriting_torch import _native_build as _build
     from rewriting_torch.ops import upconv_blur as kup
 
     ptxas = [line.strip() for line in
@@ -4771,6 +4780,196 @@ def add_slice15(kernels: dict, sharded: dict) -> None:
         worst["default"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: JPEG reading (csrc/jpegdec.cpp) for FID and the real samples
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_TIMED = "baseline_420_q75_256"   # (b): 256x256, 4:2:0, quality 75
+JPEG_REFUSED = ("truncated.jpg", "cmyk.jpg")
+JPEG_STATS_RTOL = 1e-6   # (c): of the largest mean / covariance value
+
+
+def jpeg_fixtures():
+    """(name, jpg, png) of each fixture with a PNG twin (PIL's decode of
+    the JPEG, written by ``scripts/make_jpeg_fixtures.py``), by name."""
+    names = sorted(f[:-4] for f in os.listdir(JPEG_DIR) if f.endswith(".jpg")
+                   and os.path.exists(os.path.join(JPEG_DIR, f[:-4] + ".png")))
+    return [(n, os.path.join(JPEG_DIR, n + ".jpg"),
+             os.path.join(JPEG_DIR, n + ".png")) for n in names]
+
+
+def check_jpeg(workdir: str, counters, feature_fn=None, n_decode: int = 256,
+               n_fid: int = 64, batch_size: int = 16, device: str = "cuda",
+               build_s: float = None) -> dict:
+    """Phase 39: the port's JPEG reading.  (a) every fixture of
+    ``tests/data/jpeg`` through ``native.read_image_rgb`` and
+    ``read_image`` against its PNG twin read back by the port's PNG
+    decoder, 0 LSB apart; (b) ``read_batches`` images/s over `n_decode`
+    paths of the 256x256 4:2:0 fixture on read_batches' default pool and
+    on one thread, then of its twin, at `batch_size`, and the median time
+    of one decode of the JPEG's bytes (jpegdec's first build timed on its
+    own); (c) FID's statistics
+    (``compute_feature_stats`` of ``_image_dir_batches``, as
+    ``compute_fid`` takes a directory) through `feature_fn` (else the
+    ``FeatureExtractor`` that ``$REWRITING_TPU_WEIGHTS`` gives) of `n_fid`
+    copies of the 256x256 fixtures as JPEG, then of their twins, within
+    JPEG_STATS_RTOL; (d) ``samples.get_gt_samples`` of the two directories
+    equal; (e) no kernel launched (`counters()` before and after); (f)
+    the truncated and the CMYK fixture raise ``ValueError`` naming their
+    file.  `build_s`: the seconds of jpegdec's build where it ran before
+    the phase (``main`` builds it in phase 2, beside the kernels)."""
+    import shutil
+
+    import numpy as np
+
+    from rewriting_torch import native
+    from rewriting_torch.metrics import fid, samples
+    from rewriting_torch.utils.device import resolve_device
+
+    resolve_device(device)
+    base = counters()
+    t1 = time.time()
+    native._jpeg_library()
+    load_s = time.time() - t1
+    if build_s is None:
+        build_s = load_s
+        print(f"phase 39 jpegdec built and loaded in {build_s:.3f} s")
+    else:
+        print(f"phase 39 jpegdec built in {build_s:.3f} s (phase 2, beside "
+              f"the kernels' nvcc), loaded in {load_s:.3f} s")
+
+    # (a) every fixture against its twin
+    fixtures = []
+    for name, jpg, png in jpeg_fixtures():
+        row = {"name": name}
+        for how, read in (("rgb", native.read_image_rgb),
+                          ("own_mode", native.read_image)):
+            got, want = read(jpg), read(png)
+            apart = (int(np.count_nonzero(got != want))
+                     if got.shape == want.shape else -1)
+            row[how] = {"shape": list(got.shape), "values_apart": apart}
+        fixtures.append(row)
+        print(f"phase 39 (a) {name}: {row['rgb']['shape']} RGB, "
+              f"{row['own_mode']['shape']} in its mode; values apart from "
+              f"PIL's decode {row['rgb']['values_apart']}, "
+              f"{row['own_mode']['values_apart']}")
+    wrong = [r["name"] for r in fixtures
+             if r["rgb"]["values_apart"] or r["own_mode"]["values_apart"]]
+    if wrong or not fixtures:
+        raise AssertionError(f"phase 39: JPEG fixtures differ from their "
+                             f"PNG twins: {wrong or 'no fixture'}")
+
+    # (b) decode images/s: read_batches on its default pool, then the JPEG
+    # on one thread, and one decode of the bytes in memory
+    timed = os.path.join(JPEG_DIR, JPEG_TIMED)
+    pool = min(8, os.cpu_count() or 1)   # read_batches' default
+    rates = {}
+    for key, kind, workers in (("jpg", "jpg", pool), ("jpg_1", "jpg", 1),
+                               ("png", "png", pool)):
+        paths = [f"{timed}.{kind}"] * n_decode
+        t1 = time.time()
+        n = sum(len(b) for b in native.read_batches(paths, batch_size,
+                                                    workers=workers))
+        rates[key] = n / (time.time() - t1)
+    with open(f"{timed}.jpg", "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(64):
+        t1 = time.perf_counter()
+        native.decode_jpeg(data)
+        times.append(time.perf_counter() - t1)
+    decode_ms = float(np.median(times) * 1e3)
+    print(f"phase 39 (b) read_batches of {n_decode} x {JPEG_TIMED} at batch "
+          f"{batch_size}: JPEG {rates['jpg']:.2f} images/s on {pool} "
+          f"threads, {rates['jpg_1']:.2f} on 1 "
+          f"({rates['jpg'] / rates['jpg_1']:.2f}x); its PNG twin "
+          f"{rates['png']:.2f} images/s on {pool} "
+          f"({rates['jpg'] / rates['png']:.2f}x); one decode in memory "
+          f"{decode_ms:.3f} ms (median of 64; {os.cpu_count()} cores)")
+
+    # (c) FID statistics of JPEG and PNG directories of the same pixels
+    square = [(j, p) for (name, j, p), r in zip(jpeg_fixtures(), fixtures)
+              if r["rgb"]["shape"] == [256, 256, 3]]
+    dirs = {kind: os.path.join(workdir, f"phase39_{kind}")
+            for kind in ("jpg", "png")}
+    for kind, d in dirs.items():
+        os.makedirs(d, exist_ok=True)
+        for i in range(n_fid):
+            src = square[i % len(square)][0 if kind == "jpg" else 1]
+            shutil.copyfile(src, os.path.join(d, f"{i}.{kind}"))
+    t1 = time.time()
+    fe = feature_fn or fid.FeatureExtractor(batch_size=batch_size,
+                                            device=device)
+    load_s = time.time() - t1
+    stats, stats_s = {}, {}
+    for kind, d in dirs.items():
+        t1 = time.time()
+        stats[kind] = fid.compute_feature_stats(
+            fid._image_dir_batches(d, batch_size, as_uint8=True), fe)
+        stats_s[kind] = time.time() - t1
+    (mu_j, sig_j), (mu_p, sig_p) = stats["jpg"], stats["png"]
+    mu_rel = float(np.abs(mu_j - mu_p).max() / np.abs(mu_p).max())
+    sig_rel = float(np.abs(sig_j - sig_p).max() / np.abs(sig_p).max())
+    print(f"phase 39 (c) FID statistics of {n_fid} images ({len(square)} "
+          f"fixtures, copied): JPEG directory {stats_s['jpg']:.3f} s, PNG "
+          f"{stats_s['png']:.3f} s (Inception loaded in {load_s:.3f} s); "
+          f"mean {mu_rel:.3e}, covariance {sig_rel:.3e} of their largest "
+          f"apart (limit {JPEG_STATS_RTOL})")
+    if not (mu_rel <= JPEG_STATS_RTOL and sig_rel <= JPEG_STATS_RTOL):
+        raise AssertionError(f"phase 39: FID statistics of the JPEG and PNG "
+                             f"directories {mu_rel}, {sig_rel} apart")
+
+    # (d) the patch-FID real samples
+    t1 = time.time()
+    gt = {kind: samples.get_gt_samples(d, 256, n_fid)
+          for kind, d in dirs.items()}
+    gt_s = time.time() - t1
+    gt_apart = int(np.count_nonzero(gt["jpg"] != gt["png"]))
+    print(f"phase 39 (d) get_gt_samples of the two directories: "
+          f"{gt['jpg'].shape}, {gt_apart} values apart ({gt_s:.3f} s)")
+    if gt["jpg"].shape != (n_fid, 256, 256, 3) or gt_apart:
+        raise AssertionError(f"phase 39: get_gt_samples {gt['jpg'].shape}, "
+                             f"{gt_apart} values apart")
+
+    # (e) decoding launches no kernel
+    launches = {k: v - base[k] for k, v in counters().items()}
+    print(f"phase 39 (e) launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 39 launched {launches}")
+
+    # (f) what the port refuses
+    refused = {}
+    for name in JPEG_REFUSED:
+        path = os.path.join(JPEG_DIR, name)
+        try:
+            native.read_image_rgb(path)
+        except ValueError as e:
+            if path not in str(e):
+                raise AssertionError(f"phase 39: {e} does not name {path}")
+            refused[name] = str(e)
+        else:
+            raise AssertionError(f"phase 39: {path} was read")
+        print(f"phase 39 (f) {name}: ValueError: {refused[name]}")
+    return {"build_s": build_s, "fixtures": fixtures,
+            "decode_images_per_s": {"jpeg": rates["jpg"],
+                                    "jpeg_one_thread": rates["jpg_1"],
+                                    "png": rates["png"]},
+            "decode_threads": pool, "decode_ms": decode_ms,
+            "fid_stats_s": stats_s, "inception_load_s": load_s,
+            "mean_rel": mu_rel, "covariance_rel": sig_rel,
+            "gt_samples_s": gt_s, "gt_values_apart": gt_apart,
+            "launches": launches, "refused": refused}
+
+
+def add_slice16(kernels: dict, jpeg: dict) -> None:
+    """Phase 39 into the kernels line: each kernel's launches there."""
+    for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                      ("upconv_blur_bf16", "k1_bf16"),
+                      ("upsample2x", "k3")):
+        kernels[name]["jpeg_launches"] = jpeg["launches"][key]
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -4780,7 +4979,8 @@ def main() -> int:
     from rewriting_torch.metrics.load_mask import load_mask_info
     from rewriting_torch.metrics.sample_edited import sample_edited
     from rewriting_torch.models.stylegan2 import SeqStyleGAN2, params_to
-    from rewriting_torch.ops import _build, blur2d as kblur, make_kernel
+    from rewriting_torch import _native_build as _build
+    from rewriting_torch.ops import blur2d as kblur, make_kernel
     from rewriting_torch.ops import upconv_blur as kup
     from rewriting_torch.ops import upsample2x as kup2
     from rewriting_torch.ops.precision import apply_parity_tier
@@ -4813,9 +5013,21 @@ def main() -> int:
     # 2. build and load the kernels, one nvcc each, all at once ---------------
     t0 = time.time()
     names = ("blur2d", "upconv_blur", "upconv_blur_bf16", "upsample2x")
+    # phase 39's JPEG decoder: its g++ build runs beside the nvcc builds
+    jpegdec_s = []
+
+    def build_jpegdec(start=t0):
+        _build.build("jpegdec")
+        jpegdec_s.append(time.time() - start)
+
+    jpegdec = threading.Thread(target=build_jpegdec)
+    jpegdec.start()
     _build.build_all(names)
     kblur.library(), kup.library(), kup.library_bf16(), kup2.library()
     print(f"{', '.join(names)} built and loaded in {time.time() - t0:.3f} s")
+    jpegdec.join()
+    if jpegdec_s:   # else phase 39 builds it, and raises if it fails
+        print(f"jpegdec (g++) built in {jpegdec_s[0]:.3f} s beside them")
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -5588,6 +5800,17 @@ def main() -> int:
         add_slice15(kernels, sharded)
         print(json.dumps({"sharded_faces": sharded}))
         phase("38 sharded paths at faces-1024", t0)
+
+        # 39. JPEG reading: the fixtures against PIL's pixels, decode
+        # images/s, FID statistics and real samples of JPEG directories
+        # against PNG ones; no kernel on this path ------------------------
+        t0 = time.time()
+        with weights_env(weights9):
+            jpeg = check_jpeg(work.name, slice12_counts,
+                              build_s=jpegdec_s[0] if jpegdec_s else None)
+        add_slice16(kernels, jpeg)
+        print(json.dumps({"jpeg": jpeg}))
+        phase("39 JPEG reading", t0)
     finally:
         work.cleanup()
         keep.cleanup()

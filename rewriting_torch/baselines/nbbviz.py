@@ -135,7 +135,9 @@ def check_missing(src_root: str, results_root: str,
                   limit: Optional[int] = 10000) -> List[int]:
     """Image numbers in src_root whose per-image result directory lacks
     the final artifact (reference get_missing.py:20-27: source files are
-    named {basename}_{num}.png; results live in {results_root}/{num}/).
+    named {basename}_{num} with a .png, .jpg, .jpeg or .webp extension,
+    the port reading the PNG and JPEG ones; results live in
+    {results_root}/{num}/).
     Feed the return value back through the batch script to redo only the
     missing work."""
     base = os.path.basename(os.path.normpath(src_root))

@@ -13,9 +13,9 @@ Command line (reference fid.py:248-282)::
     python3 -m rewriting_torch.metrics.fid A B [--batch_size 50]
         [--inception_weights pt_inception-2015-12-05.pth]
 
-A and B are image directories (PNG files; numeric stems in numeric
-order) or ``.npz`` statistics; it prints the FID.  The Inception weights
-come from ``--inception_weights``, else from
+A and B are image directories (PNG and JPEG files; numeric stems in
+numeric order) or ``.npz`` statistics; it prints the FID.  The Inception
+weights come from ``--inception_weights``, else from
 ``$REWRITING_TPU_WEIGHTS/pt_inception-2015-12-05.pth``.  Runs on the card.
 """
 
@@ -138,10 +138,11 @@ def parity_images(seed: int, n: int = 64, size: int = 128) -> np.ndarray:
 
 
 def _image_dir_batches(path: str, batch_size: int, as_uint8: bool = False):
-    """The images of `path` (``*.png``, and ``*.jpg``/``*.jpeg``, which
-    raise: the port reads PNG only) in batches, numeric stems in numeric
-    order (the samplers' ``{imgnum}.png``) before the others; uint8, or zc
-    float32 as the JAX package normalizes them on the host."""
+    """The images of `path` (``*.png``, ``*.jpg``, ``*.jpeg``, each read by
+    its signature: a JPEG decodes to PIL's pixels) in batches, numeric
+    stems in numeric order (the samplers' ``{imgnum}.png``) before the
+    others; uint8, or zc float32 as the JAX package normalizes them on the
+    host."""
     def key(f):
         # isdecimal, not isdigit: int() rejects some Unicode digits
         stem = os.path.splitext(f)[0]

@@ -4,9 +4,10 @@ statistics and patch-FID crops (reference utils/get_samples.py).
 The port's counterpart of the JAX package's ``metrics/samples.py``.  The
 reference hardcodes lab-internal dataset paths (get_samples.py:12-30);
 here every function takes an explicit image root.  Images are read with
-the port's PNG reader (``native.read_image_rgb``: PNG only, any other
-format raises naming the file), their shorter side resized with PIL's
-BILINEAR algorithm (``renormalize.resize_bilinear``, channel by channel),
+the port's reader (``native.read_image_rgb``: PNG, and JPEG with PIL's
+pixels; any other format raises naming the file), their shorter side
+resized with PIL's BILINEAR algorithm (``renormalize.resize_bilinear``,
+channel by channel),
 centre-cropped to the model resolution and normalized to zero-centred
 float32 (reference get_transform, get_samples.py:58-65).  Generated
 images come from ``model(params, z)`` on the model's device.
@@ -48,9 +49,10 @@ def get_image_paths(root: str, n: Optional[int] = None,
 
 
 def load_image(path: str, size: int) -> np.ndarray:
-    """One image -> (size, size, 3) zero-centered float32: resize the
-    shorter side to `size` (PIL's ``resize((nw, nh), BILINEAR)``), centre
-    crop (reference get_transform, get_samples.py:58-65)."""
+    """One image (PNG or JPEG) -> (size, size, 3) zero-centered float32:
+    resize the shorter side to `size` (PIL's ``resize((nw, nh),
+    BILINEAR)``), centre crop (reference get_transform,
+    get_samples.py:58-65)."""
     img = read_image_rgb(path)
     h, w = img.shape[:2]
     scale = size / min(w, h)
@@ -65,8 +67,9 @@ def load_image(path: str, size: int) -> np.ndarray:
 
 def get_gt_samples(root: str, size: int, n: int,
                    seed: int = 1) -> np.ndarray:
-    """(n, size, size, 3) zc real images sampled from root (reference
-    get_gt_samples, get_samples.py:86-94)."""
+    """(n, size, size, 3) zc real images (PNG or JPEG files, such as an
+    LSUN directory's photos) sampled from root (reference get_gt_samples,
+    get_samples.py:86-94)."""
     paths = get_image_paths(root, n, seed=seed)
     return np.stack([load_image(p, size)
                      for p in pbar.pbar(paths, desc="gt samples")])

@@ -2,41 +2,124 @@
 stream of batches.
 
 The port's counterpart of the read side of the JAX package's
-``native/__init__.py`` (:169-220), over the port's own PNG decoder
-(``utils/renormalize.decode_png``, zlib and numpy) where the JAX package
-has a C++ decoder with a PIL fallback.  PIL is not a dependency of the
-port, so an image is a PNG: any other file raises ``ValueError`` naming
-it.  The images the port and the JAX package write are PNGs.
+``native/__init__.py`` (:169-220), where the JAX package decodes PNG in
+C++ and hands any other file to PIL.  PIL is not a dependency of the
+port, which reads the two formats FID's directory reader lists, picked by the
+file's signature as PIL's ``open`` picks them (not by its extension):
+PNG through ``utils/renormalize.decode_png`` (zlib and numpy), and JPEG
+through ``csrc/jpegdec.cpp`` (host C++, built at first use by
+``_native_build``, called through ctypes, which releases the GIL), whose
+pixels equal PIL's decode bit for bit.  Any other file, and a JPEG kind
+the decoder does not read (CMYK, arithmetic coding, 12-bit, lossless, ...),
+raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import ctypes
+import functools
 import os
 from collections import deque
 
 import numpy as np
 
+from .. import _native_build
 from ..utils.renormalize import decode_png
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+
+# jpegdec.cpp's JpegError codes
+JPEG_ERRORS = {
+    -1: "not a JPEG stream",
+    -2: "truncated: the data ends before the image does",
+    -3: "corrupt JPEG data",
+    -4: "bad Huffman table",
+    -5: "bad Huffman code in the entropy-coded data",
+    -6: "a scan's component has no quantization table",
+    -7: "arithmetic coding is not read",
+    -8: "lossless and hierarchical JPEG are not read",
+    -9: "sample precisions other than 8 bits (such as 12-bit) are not read",
+    -10: "only 1 (grey) or 3 (YCbCr, RGB) components are read, not CMYK "
+         "or YCCK",
+    -11: "sampling factors other than 1x1, 2x1 and 2x2 below the largest "
+         "are not read",
+    -12: "a zero image dimension (a height set by DNL) is not read",
+    -13: "bad scan header or progression",
+    -14: "progressive scans that leave low-frequency coefficients "
+         "unrefined (libjpeg's block smoothing) are not read",
+    -15: "out of memory",
+    -16: "missing or misordered restart marker",
+    -17: "a scan comes before the frame header",
+    -18: "a scan uses an undefined Huffman table",
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jpeg_library():
+    lib = _native_build.load("jpegdec")
+    intp = ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_get_info.argtypes = [ctypes.c_char_p, ctypes.c_long, intp,
+                                  intp, intp]
+    lib.jpeg_get_info.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                ctypes.c_void_p]
+    lib.jpeg_decode.restype = ctypes.c_int
+    return lib
+
+
+def _jpeg_error(code: int) -> ValueError:
+    return ValueError(JPEG_ERRORS.get(code, f"JPEG error {code}"))
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """The uint8 pixels of a JPEG stream: (H, W, 1) for one component,
+    (H, W, 3) RGB for three, equal to PIL's decode (libjpeg-turbo's
+    defaults: the accurate integer IDCT, fancy upsampling).  Raises
+    ``ValueError`` saying what the stream lacks or what is not read."""
+    lib = _jpeg_library()
+    data = bytes(data)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = lib.jpeg_get_info(data, len(data), ctypes.byref(w),
+                             ctypes.byref(h), ctypes.byref(c))
+    if code:
+        raise _jpeg_error(code)
+    try:
+        out = np.empty((h.value, w.value, c.value), np.uint8)
+    except MemoryError as e:   # a declared frame the host cannot allocate
+        raise ValueError(f"out of memory for its {w.value}x{h.value} frame "
+                         f"({e})") from e
+    code = lib.jpeg_decode(data, len(data), out.ctypes.data)
+    if code:
+        raise _jpeg_error(code)
+    return out
 
 
 def read_image(path: str) -> np.ndarray:
-    """The uint8 pixels of a PNG file in its own mode, as ``numpy.asarray``
-    of a PIL image gives them: (H, W) greyscale, (H, W, 2|3|4)
-    otherwise."""
+    """The uint8 pixels of a PNG or JPEG file in its own mode, as
+    ``numpy.asarray`` of a PIL image gives them: (H, W) greyscale, (H, W,
+    2|3|4) otherwise."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        decode, kind = decode_png, "PNG"
+    elif data.startswith(JPEG_SIGNATURE):
+        decode, kind = decode_jpeg, "JPEG"
+    else:
+        raise ValueError(f"cannot read {path}: neither PNG nor JPEG (the "
+                         "port reads 8-bit PNG and baseline, extended or "
+                         "progressive Huffman JPEG files)")
     try:
-        img = decode_png(data)
+        img = decode(data)
     except ValueError as e:
-        raise ValueError(f"cannot read {path}: {e} (the port reads 8-bit "
-                         "PNG files only)") from e
+        raise ValueError(f"cannot read {path} ({kind}): {e}") from e
     return img[:, :, 0] if img.shape[2] == 1 else img
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB array of a PNG file: alpha dropped, grey
-    copied to each channel (PIL's ``convert("RGB")``)."""
+    """The (H, W, 3) uint8 RGB array of a PNG or JPEG file: alpha dropped,
+    grey copied to each channel (PIL's ``convert("RGB")``)."""
     img = read_image(path)
     if img.ndim == 2:
         img = img[:, :, None]
@@ -49,8 +132,9 @@ def read_batches(paths, batch_size: int, workers: int = None,
                  readahead: int = 2):
     """Yield (B, H, W, 3) uint8 batches of the image files in `paths`,
     decoded on a thread pool `readahead` batches ahead of the consumer.
-    Order is kept; the last batch holds the remainder.  (zlib's inflate
-    releases the GIL; the rows' unfiltering in numpy mostly does not.)"""
+    Order is kept; the last batch holds the remainder.  (A JPEG decodes
+    with the GIL released; of a PNG, zlib's inflate releases it and the
+    rows' unfiltering in numpy mostly does not.)"""
     paths = list(paths)
     if not paths:
         return

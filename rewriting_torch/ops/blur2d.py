@@ -42,7 +42,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from .. import _native_build as _build
 
 MAX_TAPS = 8
 

@@ -69,7 +69,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from .. import _native_build as _build
 from .blur2d import blur2d_reference
 from .fused_act import fused_leaky_relu
 

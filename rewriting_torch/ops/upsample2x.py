@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from .. import _native_build as _build
 from . import blur2d as _blur
 
 MAX_TAPS = 8

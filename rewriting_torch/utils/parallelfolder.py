@@ -8,8 +8,9 @@ imports, reference utils/segdata.py:2, utils/sampler.py:110): ``len()``,
 index -> tuple of loaded images, and an ``.images`` list of path tuples.
 An image is a ``uint8`` array as ``numpy.asarray`` of a PIL image gives it:
 (H, W) for greyscale, (H, W, C) otherwise.  PIL is not a dependency of the
-port, so files are read by ``native.read_image``: PNG only, and any other
-format raises ``ValueError`` naming the file.
+port, so files are read by ``native.read_image``: PNG, and JPEG with PIL's
+pixels; any other format (WebP, BMP, GIF among the extensions listed)
+raises ``ValueError`` naming the file when it is read.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ IMAGE_EXTENSIONS = (".png", ".webp", ".jpg", ".jpeg", ".bmp", ".gif")
 
 def walk_image_files(root: str):
     """Sorted image paths under root (the single tree-walker shared with
-    metrics/samples.py so one extension list governs both)."""
+    metrics/samples.py so one extension list governs both).  Lists every
+    extension of ``IMAGE_EXTENSIONS``; ``native.read_image`` reads the PNG
+    and JPEG files among them."""
     root = os.path.expanduser(root)
     out = []
     for dirpath, _dirnames, filenames in sorted(os.walk(root)):

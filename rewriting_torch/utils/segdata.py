@@ -2,7 +2,8 @@
 folders with bit-packed label channels (reference utils/segdata.py:1-74).
 
 The port's counterpart of the JAX package's ``utils/segdata.py``: images
-are uint8 arrays (``native.read_image``, PNG only).
+are uint8 arrays (``native.read_image``: PNG, and JPEG with PIL's
+pixels).
 
 Each dataset directory holds ``imgdir``/``segdir`` trees of corresponding
 images plus a ``labelnames.json`` describing how labels are packed into

@@ -48,7 +48,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from rewriting_torch.ops import _build  # noqa: E402
+from rewriting_torch import _native_build as _build  # noqa: E402
 from rewriting_torch.ops import upconv_blur as kup  # noqa: E402
 from rewriting_torch.ops.precision import apply_parity_tier  # noqa: E402
 

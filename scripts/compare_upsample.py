@@ -44,7 +44,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from rewriting_torch.ops import _build, make_kernel  # noqa: E402
+from rewriting_torch import _native_build as _build  # noqa: E402
+from rewriting_torch.ops import make_kernel  # noqa: E402
 from rewriting_torch.ops import upsample2x as kup2  # noqa: E402
 from rewriting_torch.ops.precision import apply_parity_tier  # noqa: E402
 from rewriting_torch.ops.upfirdn2d import upsample2d  # noqa: E402

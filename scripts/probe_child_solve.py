@@ -57,7 +57,7 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=501)
     args = ap.parse_args(argv)
-    from rewriting_torch.ops import _build
+    from rewriting_torch import _native_build as _build
     from rewriting_torch.parallel import comm
 
     _build.build_all(("blur2d", "upconv_blur", "upsample2x"))

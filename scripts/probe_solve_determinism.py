@@ -37,7 +37,7 @@ import torch  # noqa: E402
 
 from rewriting_torch.core import DataBag  # noqa: E402
 from rewriting_torch.models.stylegan2 import SeqStyleGAN2  # noqa: E402
-from rewriting_torch.ops import _build  # noqa: E402
+from rewriting_torch import _native_build as _build  # noqa: E402
 from rewriting_torch.rewrite import SeqStyleGanRewriter, solve  # noqa: E402
 from rewriting_torch.rewrite.multi import build_goals, fold_bags  # noqa: E402
 from rewriting_torch.utils.zdataset import z_dataset_for_model  # noqa: E402

@@ -37,7 +37,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from rewriting_torch.ops import _build  # noqa: E402
+from rewriting_torch import _native_build as _build  # noqa: E402
 from rewriting_torch.ops import upconv_blur as kup  # noqa: E402
 
 SHAPES = ((16, 256, 128, 128, 128), (8, 128, 256, 256, 64))

@@ -39,7 +39,8 @@ def main(argv) -> int:
     import chip_smoke as cs
     from rewriting_torch.metrics.sample import sample_clean
     from rewriting_torch.models.stylegan2 import SeqStyleGAN2
-    from rewriting_torch.ops import _build, blur2d as kblur
+    from rewriting_torch import _native_build as _build
+    from rewriting_torch.ops import blur2d as kblur
     from rewriting_torch.ops import upconv_blur as kup
     from rewriting_torch.ops import upsample2x as kup2
     from rewriting_torch.ops.precision import apply_parity_tier

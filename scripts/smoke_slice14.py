@@ -33,7 +33,8 @@ def main() -> int:
     import chip_smoke as cs
     from rewriting_torch.metrics.sample import sample_clean
     from rewriting_torch.models.stylegan2 import SeqStyleGAN2
-    from rewriting_torch.ops import _build, blur2d as kblur
+    from rewriting_torch import _native_build as _build
+    from rewriting_torch.ops import blur2d as kblur
     from rewriting_torch.ops.precision import apply_parity_tier
 
     if not torch.cuda.is_available():

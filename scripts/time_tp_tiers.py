@@ -85,7 +85,7 @@ def one(root: str, runs: int) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from rewriting_torch.ops import _build
+    from rewriting_torch import _native_build as _build
     from rewriting_torch.parallel import comm
 
     t0 = time.time()

@@ -31,7 +31,8 @@ from rewriting_tpu.ops.pallas_upfirdn import blur2d_pallas, blur2d_pallas_bs
 from rewriting_tpu.ops.upfirdn2d import (blur2d as jax_blur2d,
                                          make_kernel as jax_make_kernel,
                                          upsample2d as jax_upsample2d)
-from rewriting_torch.ops import _build, make_kernel, upfirdn2d, upsample2d
+from rewriting_torch import _native_build as _build
+from rewriting_torch.ops import make_kernel, upfirdn2d, upsample2d
 from rewriting_torch.ops.blur2d import (adjoint, blur2d_backward_reference,
                                         blur2d_cuda, blur2d_reference)
 from rewriting_torch.ops import blur2d as kb

@@ -5,7 +5,8 @@ and ``metrics/{samples,patch_fid,plot_patch_fids,experiments}.py``.
 Held:
 - ``ParallelImageFolders`` and ``MultiSegmentDataset``: the port's uint8
   arrays equal ``numpy.asarray`` of the JAX package's PIL images (RGB and
-  greyscale), labels and histograms equal; a JPEG raises naming its file;
+  greyscale, PNG and JPEG), labels and histograms equal; a WebP and a
+  CMYK JPEG raise naming their file;
 - the samplers' index sequences and ``subsample_folder``'s copies equal;
 - ``segviz``: palette, visualizations and legend swatches equal;
 - ``samples``: ``load_image`` equal to the JAX package's PIL resize and
@@ -131,10 +132,27 @@ def test_parallel_image_folders_match_jax(tmp_path):
         ParallelImageFolders([roots[0]])
     jpg = tmp_path / "jpg"
     jpg.mkdir()
-    PIL.Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
+    rng = np.random.RandomState(1)
+    PIL.Image.fromarray(rng.randint(0, 256, (13, 22, 3), np.uint8)).save(
         str(jpg / "a.jpg"))
-    with pytest.raises(ValueError, match="a.jpg"):
-        ParallelImageFolders([str(jpg)])[0]
+    PIL.Image.fromarray(rng.randint(0, 256, (13, 22), np.uint8)).save(
+        str(jpg / "b.jpg"))
+    ds, jds = ParallelImageFolders([str(jpg)]), JaxFolders([str(jpg)])
+    assert len(ds) == len(jds) == 2 and ds.images == jds.images
+    for i in range(2):
+        (got,), (want,) = ds[i], jds[i]
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert ds[1][0].shape == (13, 22)
+    odd = tmp_path / "odd"
+    odd.mkdir()
+    PIL.Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
+        str(odd / "a.webp"))
+    PIL.Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("CMYK").save(
+        str(odd / "b.jpg"))
+    for i, name in enumerate(("a.webp", "b.jpg")):
+        with pytest.raises(ValueError, match=name):
+            ParallelImageFolders([str(odd)])[i]
 
 
 def test_multisegment_dataset_matches_jax(tmp_path):

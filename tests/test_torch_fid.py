@@ -5,8 +5,9 @@
   the FID of two PNG directories through a cheap feature function: 1e-6
   relative (measured 0 to 1.8e-7).  Each package reads the other's stats.
 - The reader: PNGs of the port's encoder and of PIL (whose rows are Paeth
-  and Average filtered, among others) decode to PIL's pixels; batches keep
-  their order and carry the remainder last; a JPEG raises naming its file.
+  and Average filtered, among others) and a JPEG decode to PIL's pixels;
+  batches keep their order and carry the remainder last; a WebP and a
+  CMYK JPEG raise naming their file.
 - InceptionV3's features of 2 images at 299 pixels, uint8 and float,
   within 1e-4 of the largest (measured 4e-7); the checkpoint read from the
   weights directory, the converter and its inverse bit for bit.
@@ -140,8 +141,19 @@ def test_read_image_rgb_matches_pil(tmp_path):
             str(path)), err_msg=name)
     jpg = tmp_path / "photo.jpg"
     PIL.Image.fromarray(img).save(jpg)
-    with pytest.raises(ValueError, match="photo.jpg"):
-        native.read_image_rgb(str(jpg))
+    got = native.read_image_rgb(str(jpg))
+    assert got.dtype == np.uint8 and got.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(got, jax_native.read_image_rgb(str(jpg)))
+    np.testing.assert_array_equal(
+        got, np.asarray(PIL.Image.open(jpg).convert("RGB")))
+    webp = tmp_path / "photo.webp"
+    PIL.Image.fromarray(img).save(webp)
+    with pytest.raises(ValueError, match="photo.webp"):
+        native.read_image_rgb(str(webp))
+    cmyk = tmp_path / "cmyk.jpg"
+    PIL.Image.fromarray(img).convert("CMYK").save(cmyk)
+    with pytest.raises(ValueError, match="cmyk.jpg.*CMYK"):
+        native.read_image_rgb(str(cmyk))
 
 
 def test_read_batches_order_and_tail(tmp_path):

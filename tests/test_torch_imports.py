@@ -89,13 +89,15 @@ def test_every_module_imports_without_jax_pil_or_the_jax_package():
 
 
 def test_package_data_ships_the_sources_and_the_gallery():
-    """The CUDA sources and the lightbox page the samplers copy are in the
-    package, and pyproject.toml ships them."""
+    """The CUDA sources, the JPEG decoder's host source and the lightbox
+    page the samplers copy are in the package, and pyproject.toml ships
+    them."""
     text = (ROOT / "pyproject.toml").read_text()
-    for pattern in ("csrc/*.cu", "utils/lightbox.html"):
+    for pattern in ("csrc/*.cu", "csrc/*.cpp", "utils/lightbox.html"):
         assert pattern in text
     for name in ("blur2d", "upconv_blur", "upsample2x"):
         assert (PORT / "csrc" / f"{name}.cu").is_file()
+    assert (PORT / "csrc" / "jpegdec.cpp").is_file()
     assert (PORT / "utils" / "lightbox.html").is_file()
 
 
@@ -104,7 +106,8 @@ def test_no_source_names_the_jax_package():
     imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|PIL|rewriting_tpu)"
                          r"\b", re.M)
     files = [p for p in PORT.rglob("*")
-             if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".h")]
+             if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".h",
+                                             ".cpp")]
     assert len(files) >= 20
     for path in files:
         text = path.read_text()
@@ -395,3 +398,62 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "No module named 'rewriting_torch'" in proc.stderr
+
+
+_READ_WITHOUT_PIL = """
+import sys
+for name in ("PIL", "jax", "rewriting_tpu"):
+    sys.modules[name] = None   # any import of these now raises ImportError
+from rewriting_torch import native
+base = "tests/data/jpeg/baseline_420_q75_256"
+jpeg, png = native.read_image_rgb(base + ".jpg"), native.read_image_rgb(
+    base + ".png")
+assert (jpeg == png).all()
+print(sorted(n for n, m in sys.modules.items()
+             if m is not None and n.split(".")[0] in ("PIL", "jax", "torch")))
+"""
+
+
+def test_native_reads_jpeg_and_png_without_pil():
+    """``native`` imports no PIL: with PIL, jax and the JAX package
+    blocked, it reads a JPEG (building its decoder) and the PNG twin, and
+    imports no torch on the way."""
+    proc = subprocess.run([sys.executable, "-c", _READ_WITHOUT_PIL],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_slice16_helpers_raise_without_cuda(no_cuda, capsys, tmp_path):
+    """Phase 39's helper runs on the card unless given ``device="cpu"``,
+    and ``scripts/smoke_slice16.py`` exits non-zero without CUDA."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chip_smoke.check_jpeg(str(tmp_path), chip_smoke.slice12_counts)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import smoke_slice16
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    assert smoke_slice16.main([]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_slice16_helper_runs_on_the_cpu_when_asked(tmp_path):
+    """``device="cpu"`` runs phase 39's checks end to end with a seeded
+    Inception at 4 images: the fixtures at 0 LSB, both rates, equal FID
+    statistics and real samples, no launch, both refusals."""
+    fe = fid.FeatureExtractor(params=inception.init_params(0), batch_size=2,
+                              device="cpu")
+    out = chip_smoke.check_jpeg(str(tmp_path), chip_smoke.slice12_counts,
+                                feature_fn=fe, n_decode=8, n_fid=4,
+                                batch_size=2, device="cpu")
+    assert len(out["fixtures"]) >= 9
+    assert out["mean_rel"] == out["covariance_rel"] == 0.0
+    assert out["gt_values_apart"] == 0 and not any(out["launches"].values())
+    assert set(out["refused"]) == set(chip_smoke.JPEG_REFUSED)
+    assert min(out["decode_images_per_s"].values()) > 0
+    kernels = {name: {} for name in ("blur2d", "upconv_blur",
+                                     "upconv_blur_bf16", "upsample2x")}
+    chip_smoke.add_slice16(kernels, out)
+    assert all(k["jpeg_launches"] == 0 for k in kernels.values())

@@ -150,7 +150,7 @@ def test_chip_smoke_library_yardstick(taps):
 # block/warp/lane/row loops transliterated to numpy, and its launch path
 # ---------------------------------------------------------------------------
 
-from rewriting_torch.ops import _build  # noqa: E402
+from rewriting_torch import _native_build as _build  # noqa: E402
 from rewriting_torch.ops import blur2d as kb  # noqa: E402
 from rewriting_torch.ops.upfirdn2d import upsample_taps  # noqa: E402
 
