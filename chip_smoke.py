@@ -147,8 +147,12 @@ set to 0 just before it and read just after:
   images/s of a 256x256 4:2:0 JPEG (on its default pool and on one
   thread) and of its PNG twin, one decode's ms; FID's statistics
   (phase 25's seeded Inception) and ``get_gt_samples`` of a directory of
-  64 JPEGs against the same pixels as PNGs; a truncated and a CMYK JPEG
-  refused by name.  No kernel is on this path.
+  64 JPEGs against the same pixels as PNGs; a truncated JPEG refused by
+  name, a CMYK one read as PIL reads it; every file of
+  ``tests/data/images`` (palette, 1/2/4/16-bit and interlaced PNG, WebP,
+  BMP, GIF, 4:1:1 and multi-scan JPEG ...) through ``read_image_rgb``,
+  ``read_image`` and ``read_batches`` against PIL's decode on the card's
+  host, 0 values apart.  No kernel is on this path.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -4781,12 +4785,15 @@ def add_slice15(kernels: dict, sharded: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 39: JPEG reading (csrc/jpegdec.cpp) for FID and the real samples
+# Phase 39: JPEG reading (csrc/jpegdec.cpp) for FID and the real samples,
+# and every other image file through PIL
 # ---------------------------------------------------------------------------
 
 JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
 JPEG_TIMED = "baseline_420_q75_256"   # (b): 256x256, 4:2:0, quality 75
-JPEG_REFUSED = ("truncated.jpg", "cmyk.jpg")
+JPEG_REFUSED = ("truncated.jpg",)      # (f): corrupt, never handed to PIL
+JPEG_BY_PIL = ("cmyk.jpg",)            # (f): a kind jpegdec does not read
+IMAGES_DIR = os.path.join(ROOT, "tests", "data", "images")   # (g)
 JPEG_STATS_RTOL = 1e-6   # (c): of the largest mean / covariance value
 
 
@@ -4815,10 +4822,15 @@ def check_jpeg(workdir: str, counters, feature_fn=None, n_decode: int = 256,
     ``FeatureExtractor`` that ``$REWRITING_TPU_WEIGHTS`` gives) of `n_fid`
     copies of the 256x256 fixtures as JPEG, then of their twins, within
     JPEG_STATS_RTOL; (d) ``samples.get_gt_samples`` of the two directories
-    equal; (e) no kernel launched (`counters()` before and after); (f)
-    the truncated and the CMYK fixture raise ``ValueError`` naming their
-    file.  `build_s`: the seconds of jpegdec's build where it ran before
-    the phase (``main`` builds it in phase 2, beside the kernels)."""
+    equal; (e) no kernel launched over the phase (`counters()` before
+    and after (g)); (f) the truncated fixture raises ``ValueError`` naming
+    its file, and the CMYK one reads as PIL reads it on this host; (g)
+    every file of ``tests/data/images`` through ``read_image_rgb``,
+    ``read_image`` and ``read_batches`` equal to ``numpy.asarray`` of
+    PIL's image (its ``convert("RGB")``, its own mode) on this host, PIL's
+    version printed.  `build_s`: the seconds of jpegdec's build where it
+    ran before the phase (``main`` builds it in phase 2, beside the
+    kernels)."""
     import shutil
 
     import numpy as np
@@ -4932,13 +4944,7 @@ def check_jpeg(workdir: str, counters, feature_fn=None, n_decode: int = 256,
         raise AssertionError(f"phase 39: get_gt_samples {gt['jpg'].shape}, "
                              f"{gt_apart} values apart")
 
-    # (e) decoding launches no kernel
-    launches = {k: v - base[k] for k, v in counters().items()}
-    print(f"phase 39 (e) launches {launches}")
-    if any(launches.values()):
-        raise AssertionError(f"phase 39 launched {launches}")
-
-    # (f) what the port refuses
+    # (f) what the port refuses, and a JPEG it hands to PIL
     refused = {}
     for name in JPEG_REFUSED:
         path = os.path.join(JPEG_DIR, name)
@@ -4951,6 +4957,23 @@ def check_jpeg(workdir: str, counters, feature_fn=None, n_decode: int = 256,
         else:
             raise AssertionError(f"phase 39: {path} was read")
         print(f"phase 39 (f) {name}: ValueError: {refused[name]}")
+    by_pil = {name: against_pil(os.path.join(JPEG_DIR, name))
+              for name in JPEG_BY_PIL}
+    for name, row in by_pil.items():
+        print(f"phase 39 (f) {name}: {row}")
+
+    # (g) every other kind of image file, against PIL on this host
+    images = check_images(IMAGES_DIR, batch_size)
+
+    # (e) the phase launches no kernel
+    launches = {k: v - base[k] for k, v in counters().items()}
+    print(f"phase 39 (e) launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 39 launched {launches}")
+    wrong = [n for n, r in list(by_pil.items()) + list(
+        images["files"].items()) if not r["equal"]]
+    if wrong:
+        raise AssertionError(f"phase 39: read apart from PIL: {wrong}")
     return {"build_s": build_s, "fixtures": fixtures,
             "decode_images_per_s": {"jpeg": rates["jpg"],
                                     "jpeg_one_thread": rates["jpg_1"],
@@ -4959,7 +4982,76 @@ def check_jpeg(workdir: str, counters, feature_fn=None, n_decode: int = 256,
             "fid_stats_s": stats_s, "inception_load_s": load_s,
             "mean_rel": mu_rel, "covariance_rel": sig_rel,
             "gt_samples_s": gt_s, "gt_values_apart": gt_apart,
-            "launches": launches, "refused": refused}
+            "launches": launches, "refused": refused, "by_pil": by_pil,
+            "images": images}
+
+
+def against_pil(path: str) -> dict:
+    """The port's ``read_image_rgb`` and ``read_image`` of `path` against
+    ``numpy.asarray`` of PIL's ``convert("RGB")`` and of its image in its
+    own mode, on this host: shapes, dtypes and values apart."""
+    import numpy as np
+    import PIL.Image
+
+    from rewriting_torch import native
+
+    with PIL.Image.open(path) as im:
+        row = {"mode": im.mode}
+        want = {"rgb": np.asarray(im.convert("RGB")),
+                "own_mode": np.asarray(im)}
+    for how, read in (("rgb", native.read_image_rgb),
+                      ("own_mode", native.read_image)):
+        got = read(path)
+        same = got.shape == want[how].shape and got.dtype == want[how].dtype
+        row[how] = {"shape": list(got.shape), "dtype": str(got.dtype),
+                    "values_apart": int(np.count_nonzero(got != want[how]))
+                    if same else -1}
+    row["equal"] = not (row["rgb"]["values_apart"]
+                        or row["own_mode"]["values_apart"])
+    return row
+
+
+def check_images(directory: str, batch_size: int) -> dict:
+    """Phase 39 (g): each file of `directory` against PIL on this host
+    (``against_pil``), then ``read_batches`` of them all against PIL's
+    ``convert("RGB")`` of each, 0 values apart; prints PIL's version."""
+    import numpy as np
+    import PIL
+    import PIL.features
+    import PIL.Image
+
+    from rewriting_torch import native
+
+    print(f"phase 39 (g) PIL {PIL.__version__} (WebP "
+          f"{PIL.features.check('webp')}, libjpeg-turbo "
+          f"{PIL.features.check_feature('libjpeg_turbo')})")
+    t1 = time.time()
+    files = {}
+    for name in sorted(os.listdir(directory)):
+        files[name] = against_pil(os.path.join(directory, name))
+        row = files[name]
+        print(f"phase 39 (g) {name}: {row['mode']}, RGB "
+              f"{row['rgb']['shape']} {row['rgb']['values_apart']} values "
+              f"apart, own mode {row['own_mode']['shape']} "
+              f"{row['own_mode']['dtype']} {row['own_mode']['values_apart']} "
+              "apart")
+    read = [os.path.join(directory, n) for n in files]
+    got = np.concatenate(list(native.read_batches(read, batch_size)))
+    want = []
+    for p in read:
+        with PIL.Image.open(p) as im:
+            want.append(np.asarray(im.convert("RGB")))
+    want = np.stack(want)
+    apart = (int(np.count_nonzero(got != want)) if got.shape == want.shape
+             else -1)
+    seconds = time.time() - t1
+    print(f"phase 39 (g) read_batches of {len(read)} files at batch "
+          f"{batch_size}: {got.shape}, {apart} values apart "
+          f"({seconds:.3f} s for the step)")
+    if apart:
+        raise AssertionError(f"phase 39 (g): read_batches {apart} apart")
+    return {"pil": PIL.__version__, "files": files,
+            "read_batches_values_apart": apart, "seconds": seconds}
 
 
 def add_slice16(kernels: dict, jpeg: dict) -> None:

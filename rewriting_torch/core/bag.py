@@ -1,6 +1,7 @@
 """DataBag — a dict of named tensors flowing through a stage pipeline.
 
-Counterpart of the JAX package's ``core/bag.py:21``.  Conventional keys:
+Counterpart of the JAX package's ``core/bag.py`` (``DataBag`` :21, ``bag``
+:53).  Conventional keys:
 
     latent  - z, then W (after the mapping network), then (B, n_latent, D)
     style   - the per-layer style vector picked from latent
@@ -32,3 +33,8 @@ class DataBag(dict):
 
     def copy(self) -> "DataBag":
         return DataBag(self)
+
+
+def bag(**kwargs) -> DataBag:
+    """A DataBag of the keyword arguments."""
+    return DataBag(**kwargs)

@@ -1,11 +1,11 @@
 """Functional stage pipelines: model surgery as slicing.
 
 Counterpart of the JAX package's ``core/stages.py`` (``StagePipeline`` at
-:52, ``subsequence`` at :148).  A model is an ordered tuple of named stage
-functions ``fn(params_subtree, bag) -> bag`` plus a flat params dict
-``{stage_name: {param_name: tensor}}``.  Stage names are dotted paths
-(``layer4.sconv.mconv.dconv``), so a query may name a stage or any
-enclosing prefix.  Weights are shared between slices because every slice
+:52, its ``param_names`` at :143, ``subsequence`` at :148).  A model is an
+ordered tuple of named stage functions ``fn(params_subtree, bag) -> bag``
+plus a flat params dict ``{stage_name: {param_name: tensor}}``.  Stage
+names are dotted paths (``layer4.sconv.mconv.dconv``), so a query may name
+a stage or any enclosing prefix.  Weights are shared between slices because every slice
 reads the one params dict passed at call time.  Each stage runs inside
 ``ops.precision.stage_scope(stage.name)``, where an installed precision
 schedule reads its name (JAX package :75-82).
@@ -110,3 +110,12 @@ class StagePipeline:
                 f"after={after_layer!r} last={last_layer!r} "
                 f"upto={upto_layer!r})")
         return StagePipeline(self.stages[start:stop])
+
+    def param_names(self, params: Dict[str, Any]) -> Tuple[str, ...]:
+        """The keys of `params` owned by stages of this pipeline."""
+        return tuple(s.name for s in self.stages if s.name in params)
+
+
+def subsequence(pipeline: StagePipeline, **kwargs) -> StagePipeline:
+    """Functional alias of :meth:`StagePipeline.subsequence`."""
+    return pipeline.subsequence(**kwargs)

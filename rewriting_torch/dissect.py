@@ -39,10 +39,10 @@ import torch
 
 from .core.instrument import InstrumentedPipeline
 from .models.stylegan2 import params_to
+from .native import read_image
 from .stats import tally
 from .utils import imgsave, imgviz, pbar, pidfile
 from .utils.device import resolve_device
-from .utils.renormalize import decode_png
 from .utils.upsample import upsampler
 from .utils.zdataset import z_dataset_for_model
 
@@ -174,13 +174,13 @@ class DissectVis:
         return self.ioutable[layer][:, col].argsort()[::-1][:k].tolist()
 
     def image(self, layer, unit) -> np.ndarray:
-        """The unit's strip of top images, (H, W, 3) uint8."""
+        """The unit's strip of top images in its file's own mode ((H, W,
+        3) uint8 as dissection writes it)."""
         result = self.images[layer][unit]
         if result is None:
-            path = os.path.join(self.basedir, layer, self.setting,
-                                "imgs/unit_%d.png" % unit)
-            with open(path, "rb") as f:
-                result = decode_png(f.read())
+            result = read_image(os.path.join(self.basedir, layer,
+                                             self.setting,
+                                             "imgs/unit_%d.png" % unit))
             self.images[layer][unit] = result
         return result
 

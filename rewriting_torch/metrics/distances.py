@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``metrics/distances.py``, after the
 reference's metrics/distances.py (``compute_dl`` :96-136): for each image,
 the source-labelled region of the clean model's segmentation is masked
 out and the rest compared by masked LPIPS (spatial net-lin VGG16,
-``metrics/lpips.py``) or by per-pixel L1.  PNGs are read with the port's
-own decoder; LPIPS runs on `device` (default ``cuda``), L1 on the host.
+``metrics/lpips.py``) or by per-pixel L1.  Images are read as RGB by
+``native.read_image_rgb``, as the JAX package reads them; LPIPS runs on
+`device` (default ``cuda``), L1 on the host.
 
 Command line (JAX package :139-160)::
 
@@ -30,7 +31,8 @@ import torch
 
 from ..models.zoo import load_state, weights_dir
 from ..utils.device import resolve_device
-from ..utils.renormalize import decode_png, renormalize
+from ..native import read_image_rgb
+from ..utils.renormalize import renormalize
 from ..utils.upsample import resize_bilinear
 from .load_mask import load_mask_info
 from .load_seg import load_seg_info_from_exp_name
@@ -39,9 +41,8 @@ from .segio import load_seg
 
 
 def _load_image(path: str) -> np.ndarray:
-    """(H, W, 3) zc float32 image of a PNG file."""
-    with open(path, "rb") as f:
-        img = decode_png(f.read()).astype(np.float32) / 255.
+    """(H, W, 3) zc float32 image of an image file, read as RGB."""
+    img = read_image_rgb(path).astype(np.float32) / 255.
     return renormalize(img, "pt", "zc")
 
 

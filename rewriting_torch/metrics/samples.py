@@ -4,8 +4,9 @@ statistics and patch-FID crops (reference utils/get_samples.py).
 The port's counterpart of the JAX package's ``metrics/samples.py``.  The
 reference hardcodes lab-internal dataset paths (get_samples.py:12-30);
 here every function takes an explicit image root.  Images are read with
-the port's reader (``native.read_image_rgb``: PNG, and JPEG with PIL's
-pixels; any other format raises naming the file), their shorter side
+the port's reader (``native.read_image_rgb``: 8-bit PNG and Huffman JPEG
+by its own decoders, with PIL's pixels, any other file by PIL, as the JAX
+package reads it), their shorter side
 resized with PIL's BILINEAR algorithm (``renormalize.resize_bilinear``,
 channel by channel),
 centre-cropped to the model resolution and normalized to zero-centred

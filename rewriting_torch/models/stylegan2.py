@@ -842,6 +842,10 @@ class SeqStyleGAN2:
             out = pipe(params, self.make_bag(z, noise))["output"]
         return out.permute(0, 2, 3, 1).contiguous()
 
+    def apply_bag(self, params, bag: DataBag) -> DataBag:
+        """The seq pipeline over a bag (``make_bag``'s, or any stage's)."""
+        return self.pipeline(params, bag)
+
 
 def params_to(params, device) -> Dict[str, dict]:
     """The params tree with every tensor moved to `device`."""

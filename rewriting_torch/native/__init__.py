@@ -1,17 +1,20 @@
-"""Bulk image reading for the metrics: one file, or a readahead
-stream of batches.
+"""Image reading for the metrics: one file, or a readahead stream of
+batches.
 
 The port's counterpart of the read side of the JAX package's
-``native/__init__.py`` (:169-220), where the JAX package decodes PNG in
-C++ and hands any other file to PIL.  PIL is not a dependency of the
-port, which reads the two formats FID's directory reader lists, picked by the
-file's signature as PIL's ``open`` picks them (not by its extension):
-PNG through ``utils/renormalize.decode_png`` (zlib and numpy), and JPEG
-through ``csrc/jpegdec.cpp`` (host C++, built at first use by
-``_native_build``, called through ctypes, which releases the GIL), whose
-pixels equal PIL's decode bit for bit.  Any other file, and a JPEG kind
-the decoder does not read (CMYK, arithmetic coding, 12-bit, lossless, ...),
-raises ``ValueError`` naming it.
+``native/__init__.py`` (:169-220), which decodes 8-bit PNG in C++ and
+hands every other file to PIL.  The port does the same with its own
+decoders, picked by the file's signature as PIL's ``open`` picks them (not
+by its extension): PNG through ``utils/renormalize.decode_png`` (zlib and
+numpy), and JPEG through ``csrc/jpegdec.cpp`` (host C++, built at first
+use by ``_native_build``, called through ctypes, which releases the GIL),
+whose pixels equal PIL's decode bit for bit.  A file these decoders do not
+read -- a palette, 1/2/4/16-bit or interlaced PNG, a CMYK, 4:1:1,
+arithmetic, 12-bit or lossless JPEG, WebP, BMP, GIF, TIFF ... -- goes to
+PIL (imported there and nowhere else in the port), which decodes it as it
+does for the JAX package.  Truncated or corrupt PNG and JPEG data raises
+``ValueError`` naming the file, and is not retried with PIL; so does any
+other file on a host without PIL.
 """
 
 from __future__ import annotations
@@ -19,13 +22,14 @@ from __future__ import annotations
 import concurrent.futures as cf
 import ctypes
 import functools
+import io
 import os
 from collections import deque
 
 import numpy as np
 
 from .. import _native_build
-from ..utils.renormalize import decode_png
+from ..utils.renormalize import UnreadFormat, decode_png, to_rgb
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -54,6 +58,9 @@ JPEG_ERRORS = {
     -17: "a scan comes before the frame header",
     -18: "a scan uses an undefined Huffman table",
 }
+# the codes of streams that are well formed but of a kind jpegdec.cpp does
+# not read: libjpeg reads them (or refuses them itself), so they go to PIL
+JPEG_NOT_READ = frozenset((-7, -8, -9, -10, -11, -12, -14))
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,14 +77,16 @@ def _jpeg_library():
 
 
 def _jpeg_error(code: int) -> ValueError:
-    return ValueError(JPEG_ERRORS.get(code, f"JPEG error {code}"))
+    kind = UnreadFormat if code in JPEG_NOT_READ else ValueError
+    return kind(JPEG_ERRORS.get(code, f"JPEG error {code}"))
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The uint8 pixels of a JPEG stream: (H, W, 1) for one component,
     (H, W, 3) RGB for three, equal to PIL's decode (libjpeg-turbo's
     defaults: the accurate integer IDCT, fancy upsampling).  Raises
-    ``ValueError`` saying what the stream lacks or what is not read."""
+    ``UnreadFormat`` saying what is not read, and ``ValueError`` saying
+    what a corrupt stream lacks."""
     lib = _jpeg_library()
     data = bytes(data)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -96,36 +105,63 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
-def read_image(path: str) -> np.ndarray:
-    """The uint8 pixels of a PNG or JPEG file in its own mode, as
-    ``numpy.asarray`` of a PIL image gives them: (H, W) greyscale, (H, W,
-    2|3|4) otherwise."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _pil_decode(data: bytes, name: str, kind: str, rgb: bool) -> np.ndarray:
+    """PIL's decode of a file the port's decoders do not read, as the JAX
+    package reads it: ``numpy.asarray`` of the image in its own mode, or of
+    its ``convert("RGB")``."""
+    try:
+        import PIL.Image
+    except ImportError:
+        raise ValueError(
+            f"cannot read {name} ({kind}): the port's own decoders read "
+            "8-bit PNG and Huffman JPEG, and PIL, which reads the other "
+            "kinds, is not installed") from None
+    try:
+        with PIL.Image.open(io.BytesIO(data)) as im:
+            return np.array(im.convert("RGB") if rgb else im)
+    except (OSError, SyntaxError, EOFError, ValueError,
+            PIL.Image.DecompressionBombError) as e:
+        raise ValueError(f"cannot read {name} ({kind}, through PIL): "
+                         f"{e}") from e
+
+
+def decode_image(data: bytes, name: str = "the data",
+                 rgb: bool = False) -> np.ndarray:
+    """The pixels of an image file's bytes: in its own mode, as
+    ``numpy.asarray`` of a PIL image gives them ((H, W) greyscale or
+    palette indices, (H, W, 2|3|4) otherwise; PIL's dtype, such as uint16
+    for a 16-bit grey PNG), or with `rgb` the (H, W, 3) uint8 array of
+    PIL's ``convert("RGB")``.  8-bit PNG and Huffman JPEG are decoded by the
+    port, every other file by PIL.  Raises ``ValueError`` naming `name`
+    where the data is truncated or corrupt, or where neither reads it."""
     if data.startswith(PNG_SIGNATURE):
         decode, kind = decode_png, "PNG"
     elif data.startswith(JPEG_SIGNATURE):
         decode, kind = decode_jpeg, "JPEG"
     else:
-        raise ValueError(f"cannot read {path}: neither PNG nor JPEG (the "
-                         "port reads 8-bit PNG and baseline, extended or "
-                         "progressive Huffman JPEG files)")
+        return _pil_decode(data, name, "neither PNG nor JPEG", rgb)
     try:
         img = decode(data)
+    except UnreadFormat as e:
+        return _pil_decode(data, name, f"{kind}: {e}", rgb)
     except ValueError as e:
-        raise ValueError(f"cannot read {path} ({kind}): {e}") from e
+        raise ValueError(f"cannot read {name} ({kind}): {e}") from e
+    if rgb:
+        return to_rgb(img)
     return img[:, :, 0] if img.shape[2] == 1 else img
 
 
+def read_image(path: str) -> np.ndarray:
+    """The pixels of an image file in its own mode (``decode_image``)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
 def read_image_rgb(path: str) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB array of a PNG or JPEG file: alpha dropped,
-    grey copied to each channel (PIL's ``convert("RGB")``)."""
-    img = read_image(path)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.shape[2] in (1, 2):       # grey, grey + alpha
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, :3])
+    """The (H, W, 3) uint8 RGB array of an image file: PIL's
+    ``convert("RGB")``, alpha dropped, grey copied to each channel."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path, rgb=True)
 
 
 def read_batches(paths, batch_size: int, workers: int = None,

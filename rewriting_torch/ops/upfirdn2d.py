@@ -1,7 +1,8 @@
 """upfirdn2d — upsample, pad, FIR filter, downsample — and the FIR blur.
 
 Counterpart of the JAX package's ``ops/upfirdn2d.py``: ``make_kernel``
-(:36), ``upfirdn2d`` (:46-175), ``upsample2d`` (:211-239) and ``blur2d``
+(:36), ``upfirdn2d`` (:46-175) and ``upfirdn2d_general`` (:94, separate x
+and y factors and pads), ``upsample2d`` (:211-239) and ``blur2d``
 (:244-251).  The semantics are the reference ``upfirdn2d_native``:
 
     1. insert (up-1) zeros after every input sample (incl. trailing zeros),
@@ -56,18 +57,27 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """upfirdn of an NCHW tensor with a (kh, kw) FIR kernel; pad = (pad0,
     pad1) on both axes, negative values crop."""
+    return upfirdn2d_general(x, kernel, up_x=up, up_y=up, down_x=down,
+                             down_y=down, pad_x=pad, pad_y=pad)
+
+
+def upfirdn2d_general(x: torch.Tensor, kernel, up_x: int = 1, up_y: int = 1,
+                      down_x: int = 1, down_y: int = 1,
+                      pad_x: Tuple[int, int] = (0, 0),
+                      pad_y: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """upfirdn of an NCHW tensor with a (kh, kw) FIR kernel and separate
+    factors and pads along the width (x) and the height (y)."""
     n, c, h, w = x.shape
     kflip = np.ascontiguousarray(np.flip(np.asarray(kernel, np.float32),
                                          (0, 1)))
     kh, kw = kflip.shape
-    if up > 1:
-        xd = x.new_zeros((n, c, h * up, w * up))
-        xd[:, :, ::up, ::up] = x
+    if up_x > 1 or up_y > 1:
+        xd = x.new_zeros((n, c, h * up_y, w * up_x))
+        xd[:, :, ::up_y, ::up_x] = x
         x = xd
-    p0, p1 = pad
-    x = F.pad(x, (p0, p1, p0, p1))
+    x = F.pad(x, (pad_x[0], pad_x[1], pad_y[0], pad_y[1]))
     wdw = torch.from_numpy(kflip).to(x.device, x.dtype).expand(c, 1, kh, kw)
-    return F.conv2d(x, wdw, stride=down, groups=c)
+    return F.conv2d(x, wdw, stride=(down_y, down_x), groups=c)
 
 
 @functools.lru_cache(maxsize=256)

@@ -225,6 +225,10 @@ class GanRewriter:
         rewrites them all)."""
         self.params = dict(self.original_params)
 
+    def is_empty_mask(self, mask_url: str) -> bool:
+        """True where the painted mask of a data URL is 0 everywhere."""
+        return renormalize.mask_from_url(mask_url).sum() == 0.0
+
     def rf(self, fn: str) -> Optional[str]:
         """The cache file `fn`, or None without a cache dir; under a mesh
         every rank names the same file."""

@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's ``utils/imgsave.py``: a worker
 pool writes PNGs so the thread that drives the device never blocks on disk
 (``SaveImagePool``), plus ``save_image_set`` for nested arrays of images
 with a %d filename pattern and an mtime-based skip.  The encoder is the
-port's own (``renormalize.encode_png``, zlib + numpy); there is no PIL, so
-only ``.png`` is written.
+port's own (``renormalize.encode_png``, zlib + numpy), and it writes only
+``.png`` (PIL only reads, in ``native``).
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ The port's counterpart of the JAX package's ``utils/parallelfolder.py``
 (a rebuild of the netdissect ``parallelfolder`` module the reference
 imports, reference utils/segdata.py:2, utils/sampler.py:110): ``len()``,
 index -> tuple of loaded images, and an ``.images`` list of path tuples.
-An image is a ``uint8`` array as ``numpy.asarray`` of a PIL image gives it:
-(H, W) for greyscale, (H, W, C) otherwise.  PIL is not a dependency of the
-port, so files are read by ``native.read_image``: PNG, and JPEG with PIL's
-pixels; any other format (WebP, BMP, GIF among the extensions listed)
-raises ``ValueError`` naming the file when it is read.
+An image is an array as ``numpy.asarray`` of the JAX package's PIL image
+gives it: (H, W) for greyscale or palette indices, (H, W, C) otherwise.
+Files are read by ``native.read_image``: 8-bit PNG and Huffman JPEG by the
+port's own decoders, every other kind (WebP, BMP, GIF among the
+extensions listed) by PIL, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ IMAGE_EXTENSIONS = (".png", ".webp", ".jpg", ".jpeg", ".bmp", ".gif")
 def walk_image_files(root: str):
     """Sorted image paths under root (the single tree-walker shared with
     metrics/samples.py so one extension list governs both).  Lists every
-    extension of ``IMAGE_EXTENSIONS``; ``native.read_image`` reads the PNG
-    and JPEG files among them."""
+    extension of ``IMAGE_EXTENSIONS``, which ``native.read_image`` reads."""
     root = os.path.expanduser(root)
     out = []
     for dirpath, _dirnames, filenames in sorted(os.walk(root)):

@@ -1,21 +1,25 @@
-"""Painted masks from base64 PNG data URLs, images as PNG data URLs,
-PNG writing, and image normalisations, without PIL.
+"""Painted masks and images from base64 data URLs, images as PNG data
+URLs, PNG reading and writing, and image normalisations.
 
 The port's own counterpart of the JAX package's ``utils/renormalize.py``:
 ``renormalize`` (:41-49), ``as_image`` and ``as_url`` (:52-67),
-``mask_from_url`` (:72-99), which decodes with PIL, converts to RGB,
-resizes with ``Image.BILINEAR`` and reads channel 0 over 255, and
-``mask_to_url`` (:102-106).  PIL is not a dependency of the port, so an
-image here is a ``uint8 (H, W, 3)`` numpy array where the JAX package has
-a PIL image, and this module carries:
+``from_image`` and ``from_url`` (:70-90), which convert to RGB, resize
+with ``Image.BILINEAR`` and normalise, ``mask_from_url`` (:93-98), channel
+0 of ``from_url`` over 255, and ``mask_to_url`` (:101-106).  Where the JAX
+package takes or returns a PIL image, the port takes or returns a
+``uint8 (H, W, 3)`` array, and this module carries:
 
 - a PNG decoder (zlib + numpy): 8-bit greyscale, greyscale+alpha, RGB and
-  RGBA, non-interlaced, filter types 0-4;
+  RGBA, non-interlaced, filter types 0-4.  A PNG of any other kind
+  (palette, bit depths 1, 2, 4 and 16, Adam7) raises ``UnreadFormat``,
+  which ``native.decode_image`` hands to PIL as the JAX package does; a
+  data URL is decoded there, so any file PIL reads serves as a mask;
 - its counterpart, a PNG encoder (zlib + numpy) of 8-bit images with the
   "up" row filter, as the JAX package's native encoder writes them
   (``native/pngenc.cpp``);
-- the RGB conversion of PIL's ``convert("RGB")``: alpha is dropped, grey is
-  copied to every channel, so channel 0 is the first sample of a pixel;
+- the RGB conversion of PIL's ``convert("RGB")`` for the modes the port's
+  decoders give: alpha is dropped, grey is copied to every channel, so
+  channel 0 is the first sample of a pixel;
 - PIL's BILINEAR resize of 8-bit data: a triangle filter whose support
   grows with the reduction factor, coefficients normalized and rounded to
   22-bit fixed point, a horizontal pass then a vertical pass, each rounded
@@ -39,14 +43,23 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PRECISION_BITS = 32 - 8 - 2
 
-# name -> (offset, scale) per channel: value = (x - offset) / scale; the
-# generator's zero-centred output, [0, 1] and 8-bit pixels (the JAX
-# package has more, which no code of the port reads)
+# name -> (offset, scale) per channel: value = (x - offset) / scale
 OFFSET_SCALE = {
     "pt": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
     "zc": ([0.5, 0.5, 0.5], [0.5, 0.5, 0.5]),
+    "imagenet": ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225]),
+    "imagenet_meanonly": ([0.485, 0.456, 0.406],
+                          [1 / 255.0, 1 / 255.0, 1 / 255.0]),
+    "places_meanonly": ([0.475, 0.441, 0.408],
+                        [1 / 255.0, 1 / 255.0, 1 / 255.0]),
     "byte": ([0.0, 0.0, 0.0], [1 / 255.0, 1 / 255.0, 1 / 255.0]),
 }
+
+
+class UnreadFormat(ValueError):
+    """A file of a kind the port's own decoders do not read (a palette or
+    16-bit PNG, a CMYK JPEG, ...), as against corrupt data:
+    ``native.decode_image`` hands it to PIL."""
 
 
 def renormalize(data, source: str = "zc", target: str = "zc") -> np.ndarray:
@@ -122,7 +135,9 @@ def _unfilter_row(ftype: int, line: np.ndarray, prev: np.ndarray,
 
 def decode_png(data: bytes) -> np.ndarray:
     """(H, W, samples) uint8 array of an 8-bit, non-interlaced, non-palette
-    PNG."""
+    PNG.  Raises ``UnreadFormat`` for a PNG of another kind, and
+    ``ValueError`` for data that is not a PNG, or is truncated or
+    corrupt."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG")
     pos, header, idat = 8, None, []
@@ -131,6 +146,8 @@ def decode_png(data: bytes) -> np.ndarray:
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("truncated or corrupt PNG header")
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"IDAT":
             idat.append(body)
@@ -140,11 +157,14 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG has no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
-                         f"{color}, interlace {interlace}")
+        raise UnreadFormat(f"unsupported PNG: bit depth {depth}, colour type "
+                           f"{color}, interlace {interlace}")
     bpp = _CHANNELS[color]
     stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"truncated or corrupt PNG image data ({e})") from e
     if raw.size < h * (stride + 1):
         raise ValueError("truncated PNG image data")
     rows = raw[:h * (stride + 1)].reshape(h, stride + 1).astype(np.int64)
@@ -209,14 +229,61 @@ def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return img
 
 
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of an (H, W) or (H, W, 1|2|3|4) uint8
+    array: alpha dropped, grey copied to each channel."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[2] in (1, 2):       # grey, grey + alpha
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
+def _resize_rgb(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's BILINEAR resize of an (H, W, C) uint8 image to ``size = (H,
+    W)``, channel by channel, as Pillow resamples each band."""
+    return np.stack([resize_bilinear(np.ascontiguousarray(img[:, :, c]),
+                                     tuple(size))
+                     for c in range(img.shape[2])], axis=-1)
+
+
+def _decode_url(url: str) -> np.ndarray:
+    """The (H, W, 3) uint8 RGB image of a base64 data URL of any image
+    file ``native.decode_image`` reads."""
+    from .. import native   # native reads PNG through this module
+
+    data = base64.b64decode(re.sub("^data:image/.+;base64,", "", url))
+    return native.decode_image(data, "the data URL", rgb=True)
+
+
+def from_image(im: np.ndarray, target: str = "zc",
+               size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """An (H, W, 3) float32 array in `target` normalisation of a uint8
+    image, converted to RGB and resized to ``size = (H, W)`` with PIL's
+    BILINEAR if given."""
+    im = to_rgb(np.asarray(im))
+    if size is not None:
+        im = _resize_rgb(im, size)
+    return renormalize(im.astype(np.float32) / 255.0, "pt", target)
+
+
+def from_url(url: str, target: str = "zc",
+             size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """The image of a base64 data URL as ``from_image`` gives it; with
+    ``target="image"`` and no `size`, its uint8 (H, W, 3) RGB pixels."""
+    img = _decode_url(url)
+    if target == "image" and size is None:
+        return img
+    return from_image(img, target, size=size)
+
+
 def mask_from_url(url: str, size: Optional[Tuple[int, int]] = None
                   ) -> np.ndarray:
     """Decode a painted mask data URL to an (H, W) float32 array in [0, 1]:
     channel 0 of the RGB image, resized to ``size = (H, W)`` if given."""
-    png = base64.b64decode(re.sub("^data:image/.+;base64,", "", url))
-    red = decode_png(png)[:, :, 0]
+    red = _decode_url(url)[:, :, 0]
     if size is not None:
-        red = resize_bilinear(red, tuple(size))
+        red = resize_bilinear(np.ascontiguousarray(red), tuple(size))
     return red.astype(np.float32) / 255.0
 
 
@@ -234,9 +301,7 @@ def as_url(data, source: str = "zc", size: Optional[Tuple[int, int]] = None
     data = np.asarray(data)
     img = data if data.dtype == np.uint8 else as_image(data, source)
     if size is not None:
-        img = np.stack([resize_bilinear(np.ascontiguousarray(img[:, :, c]),
-                                        tuple(size))
-                        for c in range(img.shape[2])], axis=-1)
+        img = _resize_rgb(img, size)
     return "data:image/png;base64," + base64.b64encode(
         encode_png(img)).decode("utf-8")
 

@@ -11,8 +11,8 @@ in :class:`FixedRandomSubsetSampler` and every line of
 draw, the grid-jitter formula, and their call order) -- follow reference
 sampler.py:48-107 line for line.  Any reordering or API substitution
 changes the drawn index vectors and breaks compatibility with the
-reference's per-seed samples.  ``subsample_folder`` reads PNG and JPEG
-files (``native.read_image``)."""
+reference's per-seed samples.  ``subsample_folder`` reads any image file
+the JAX package reads (``native.read_image``)."""
 
 from __future__ import annotations
 

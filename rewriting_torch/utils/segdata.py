@@ -2,8 +2,9 @@
 folders with bit-packed label channels (reference utils/segdata.py:1-74).
 
 The port's counterpart of the JAX package's ``utils/segdata.py``: images
-are uint8 arrays (``native.read_image``: PNG, and JPEG with PIL's
-pixels).
+are arrays as ``numpy.asarray`` of the JAX package's PIL images gives them
+(``native.read_image``, which hands PIL what its own decoders do not
+read).
 
 Each dataset directory holds ``imgdir``/``segdir`` trees of corresponding
 images plus a ``labelnames.json`` describing how labels are packed into

@@ -1,6 +1,7 @@
 """Phase 39 of ``chip_smoke.py`` alone, on one CUDA device: JPEG reading
 (``rewriting_torch/csrc/jpegdec.cpp``, built with the host compiler at
-first use) for FID and the patch-FID real samples.
+first use) for FID and the patch-FID real samples, and every other image
+file through PIL.
 
 Writes pytorch-fid's Inception on seeded weights under its released file
 name in a temporary ``$REWRITING_TPU_WEIGHTS``, then runs
@@ -9,10 +10,13 @@ PIL's decode of it stored as a PNG (0 LSB), ``read_batches`` images/s of
 256 copies of the 256x256 4:2:0 fixture (on its default pool of threads
 and on one) and of its PNG twin, the median ms of one decode, FID's
 statistics and ``get_gt_samples`` of 64 JPEGs against the same pixels as
-PNGs, no kernel launched, and the truncated and CMYK fixtures refused.
-Prints the phase's numbers and seconds and the card's name and power
-limit; exits non-zero if a check fails.  ``--repeat N`` runs the phase N
-times in the one call (the decode rates vary with the host).
+PNGs, the truncated fixture refused, the CMYK one and every file of
+``tests/data/images`` (``scripts/make_image_fixtures.py``) read as PIL on
+the card's host reads them, alone and through ``read_batches``, PIL's
+version, and no kernel launched.  Prints the phase's numbers and seconds
+and the card's name and power limit; exits non-zero if a check fails.
+``--repeat N`` runs the phase N times in the one call (the decode rates
+vary with the host).
 
     python3 scripts/smoke_slice16.py [--repeat N]
 """

@@ -5,8 +5,8 @@ and ``metrics/{samples,patch_fid,plot_patch_fids,experiments}.py``.
 Held:
 - ``ParallelImageFolders`` and ``MultiSegmentDataset``: the port's uint8
   arrays equal ``numpy.asarray`` of the JAX package's PIL images (RGB and
-  greyscale, PNG and JPEG), labels and histograms equal; a WebP and a
-  CMYK JPEG raise naming their file;
+  greyscale, PNG and JPEG, and a WebP and a CMYK JPEG, which the port
+  hands to PIL), labels and histograms equal;
 - the samplers' index sequences and ``subsample_folder``'s copies equal;
 - ``segviz``: palette, visualizations and legend swatches equal;
 - ``samples``: ``load_image`` equal to the JAX package's PIL resize and
@@ -150,9 +150,12 @@ def test_parallel_image_folders_match_jax(tmp_path):
         str(odd / "a.webp"))
     PIL.Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("CMYK").save(
         str(odd / "b.jpg"))
-    for i, name in enumerate(("a.webp", "b.jpg")):
-        with pytest.raises(ValueError, match=name):
-            ParallelImageFolders([str(odd)])[i]
+    ds, jds = ParallelImageFolders([str(odd)]), JaxFolders([str(odd)])
+    assert ds.images == jds.images
+    for i, shape in enumerate(((4, 4, 3), (4, 4, 4))):   # RGB, CMYK
+        (got,), (want,) = ds[i], jds[i]
+        assert got.shape == shape
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_multisegment_dataset_matches_jax(tmp_path):

@@ -7,7 +7,8 @@
 - The reader: PNGs of the port's encoder and of PIL (whose rows are Paeth
   and Average filtered, among others) and a JPEG decode to PIL's pixels;
   batches keep their order and carry the remainder last; a WebP and a
-  CMYK JPEG raise naming their file.
+  CMYK JPEG, which the port hands to PIL, read as the JAX package reads
+  them.
 - InceptionV3's features of 2 images at 299 pixels, uint8 and float,
   within 1e-4 of the largest (measured 4e-7); the checkpoint read from the
   weights directory, the converter and its inverse bit for bit.
@@ -146,14 +147,17 @@ def test_read_image_rgb_matches_pil(tmp_path):
     np.testing.assert_array_equal(got, jax_native.read_image_rgb(str(jpg)))
     np.testing.assert_array_equal(
         got, np.asarray(PIL.Image.open(jpg).convert("RGB")))
+    # kinds the port's decoders do not read: PIL reads them, as in the
+    # JAX package
     webp = tmp_path / "photo.webp"
     PIL.Image.fromarray(img).save(webp)
-    with pytest.raises(ValueError, match="photo.webp"):
-        native.read_image_rgb(str(webp))
     cmyk = tmp_path / "cmyk.jpg"
     PIL.Image.fromarray(img).convert("CMYK").save(cmyk)
-    with pytest.raises(ValueError, match="cmyk.jpg.*CMYK"):
-        native.read_image_rgb(str(cmyk))
+    for path in (webp, cmyk):
+        got = native.read_image_rgb(str(path))
+        assert got.dtype == np.uint8 and got.shape == img.shape
+        np.testing.assert_array_equal(got, jax_native.read_image_rgb(
+            str(path)), err_msg=path.name)
 
 
 def test_read_batches_order_and_tail(tmp_path):

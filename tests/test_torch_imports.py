@@ -1,7 +1,10 @@
 """The port stands alone: no module of it -- the sampling slice's
-included -- imports jax, PIL or the JAX package, and its entry points never
-fall back to the CPU silently."""
+included -- imports jax or the JAX package, none imports PIL when it is
+imported (``native`` alone imports it, inside the one function that hands
+PIL the files the port's decoders do not read), and its entry points
+never fall back to the CPU silently."""
 
+import ast
 import os
 import pathlib
 import re
@@ -101,19 +104,46 @@ def test_package_data_ships_the_sources_and_the_gallery():
     assert (PORT / "utils" / "lightbox.html").is_file()
 
 
+NATIVE = PORT / "native" / "__init__.py"
+# PIL's one import in the port: indented, so inside a function of NATIVE
+LAZY_PIL = re.compile(r"^[ \t]+import PIL\.Image$", re.M)
+
+
 def test_no_source_names_the_jax_package():
-    """No file of the port names the JAX package or imports jax or PIL."""
+    """No file of the port names the JAX package or imports jax or PIL,
+    but for ``native``'s one indented ``import PIL.Image``."""
     imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|PIL|rewriting_tpu)"
                          r"\b", re.M)
     files = [p for p in PORT.rglob("*")
              if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".h",
                                              ".cpp")]
-    assert len(files) >= 20
+    assert len(files) >= 20 and NATIVE in files
     for path in files:
         text = path.read_text()
+        if path == NATIVE:
+            assert len(LAZY_PIL.findall(text)) == 1
+            text = LAZY_PIL.sub("", text)
         assert "rewriting_tpu" not in text, path
         assert not imports.search(text), path
         assert "__import__" not in text and "import_module" not in text, path
+
+
+def test_native_imports_pil_inside_one_function():
+    """``native`` has no top-level PIL import: its one import of PIL is in
+    the body of ``_pil_decode``, run only for a file the port's decoders do
+    not read."""
+    def pil_imports(tree):
+        return [node for node in ast.walk(tree)
+                if isinstance(node, ast.Import) and any(
+                    a.name.split(".")[0] == "PIL" for a in node.names)
+                or isinstance(node, ast.ImportFrom)
+                and (node.module or "").split(".")[0] == "PIL"]
+
+    module = ast.parse(NATIVE.read_text())
+    functions = {f.name: len(pil_imports(f)) for f in ast.walk(module)
+                 if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    assert {k: v for k, v in functions.items() if v} == {"_pil_decode": 1}
+    assert len(pil_imports(module)) == 1    # none at the top level
 
 
 @pytest.fixture
@@ -442,7 +472,9 @@ def test_slice16_helpers_raise_without_cuda(no_cuda, capsys, tmp_path):
 def test_slice16_helper_runs_on_the_cpu_when_asked(tmp_path):
     """``device="cpu"`` runs phase 39's checks end to end with a seeded
     Inception at 4 images: the fixtures at 0 LSB, both rates, equal FID
-    statistics and real samples, no launch, both refusals."""
+    statistics and real samples, no launch, the truncated file refused,
+    the CMYK one and every file of ``tests/data/images`` read as PIL reads
+    them, alone and through ``read_batches``."""
     fe = fid.FeatureExtractor(params=inception.init_params(0), batch_size=2,
                               device="cpu")
     out = chip_smoke.check_jpeg(str(tmp_path), chip_smoke.slice12_counts,
@@ -452,6 +484,14 @@ def test_slice16_helper_runs_on_the_cpu_when_asked(tmp_path):
     assert out["mean_rel"] == out["covariance_rel"] == 0.0
     assert out["gt_values_apart"] == 0 and not any(out["launches"].values())
     assert set(out["refused"]) == set(chip_smoke.JPEG_REFUSED)
+    assert set(out["by_pil"]) == set(chip_smoke.JPEG_BY_PIL)
+    assert all(r["equal"] and r["rgb"]["shape"] == [32, 32, 3]
+               for r in out["by_pil"].values())
+    files = out["images"]["files"]
+    assert len(files) >= 28 and all(r["equal"] for r in files.values())
+    assert files["palette_4bit.png"]["own_mode"]["shape"] == [24, 40]
+    assert files["grey_16bit.png"]["own_mode"]["dtype"] == "uint16"
+    assert out["images"]["read_batches_values_apart"] == 0
     assert min(out["decode_images_per_s"].values()) > 0
     kernels = {name: {} for name in ("blur2d", "upconv_blur",
                                      "upconv_blur_bf16", "upsample2x")}

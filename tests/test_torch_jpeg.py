@@ -20,14 +20,18 @@ numpy content (smooth fields with edges, and noise):
 - FID's image directories, ``samples.load_image`` and ``get_gt_samples``
   and NBB's listing on JPEGs equal the JAX package's.
 
-Refused with ``ValueError`` naming the file: a truncated stream, one cut
-inside a progressive refinement scan, a bad Huffman code, a frame larger
-than its data, a zero dimension, a misnumbered restart marker, CMYK, 12-bit,
-arithmetic, lossless and 4:1:1 frames, a WebP, and frames of tiny files
-that declare more than the host will allocate (65535x65535 grey,
-16384x16384 4:2:0) under an address-space limit.  Mutated fixtures raise or
-decode and never crash the process; threads decode as one does; the host
-build is keyed on its source and raises with the compiler's output.
+Refused with ``ValueError`` naming the file, and not handed to PIL: a
+truncated stream, one cut inside a progressive refinement scan, a bad
+Huffman code, a frame larger than its data, a misnumbered restart marker,
+and frames of tiny files that declare more than the host will allocate
+(65535x65535 grey, 16384x16384 4:2:0) under an address-space limit.  The
+kinds the decoder does not read go to PIL, as in the JAX package: CMYK,
+arithmetic and 4:1:1 frames and a WebP named ``.jpg`` read as the JAX
+package reads them; a zero dimension, 12-bit and lossless frames raise in
+both packages, the port's ``ValueError`` naming the file and the kind.
+Mutated fixtures raise or decode and never crash the process; threads
+decode as one does; the host build is keyed on its source and raises with
+the compiler's output.
 """
 
 import io
@@ -274,10 +278,11 @@ def test_fixtures_equal_their_png_twins():
     total = sum(os.path.getsize(os.path.join(FIXTURES, f))
                 for f in os.listdir(FIXTURES))
     assert total < 1.5 * 2 ** 20
-    for name, why in (("truncated.jpg", "truncated"), ("cmyk.jpg", "CMYK")):
-        path = os.path.join(FIXTURES, name)
-        with pytest.raises(ValueError, match=f"{re.escape(path)}.*{why}"):
-            native.read_image_rgb(path)
+    path = os.path.join(FIXTURES, "truncated.jpg")
+    with pytest.raises(ValueError, match=f"{re.escape(path)}.*truncated"):
+        native.read_image_rgb(path)
+    # a CMYK JPEG is a kind jpegdec does not read: PIL reads it
+    assert_reads_as_pil(os.path.join(FIXTURES, "cmyk.jpg"))
 
 
 # -- what the port refuses -----------------------------------------------------
@@ -304,6 +309,11 @@ def progressive_refinement_cut(data: bytes) -> bytes:
     raise AssertionError("no AC refinement scan")
 
 
+# the cases of `refused` whose kind jpegdec does not read, handed to PIL
+BY_PIL = ("zero_height", "cmyk", "12_bit", "arithmetic", "lossless", "411",
+          "webp")
+
+
 def refused():
     img = content("smooth", 64, 80, 7)
     base = jpeg_bytes(img, subsampling=2)
@@ -325,23 +335,34 @@ def refused():
         "zero_height": (patched(base, 0xC0, 1, b"\x00\x00"), "zero image"),
         "misnumbered_restart": (restart[:rst + 1] + b"\xd3" + restart[rst + 2:],
                                 "restart marker"),
-        "cmyk": (cmyk.getvalue(), "CMYK"),
+        # the kinds jpegdec does not read go to PIL: read as the JAX
+        # package reads them (why None), or refused by PIL in both
+        # packages, the port naming the file and the kind
+        "cmyk": (cmyk.getvalue(), None),
         "12_bit": (patched(base, 0xC0, 0, b"\x0c"), "12-bit"),
-        "arithmetic": (base[:sof + 1] + b"\xc9" + base[sof + 2:],
-                       "arithmetic"),
+        "arithmetic": (base[:sof + 1] + b"\xc9" + base[sof + 2:], None),
         "lossless": (base[:sof + 1] + b"\xc3" + base[sof + 2:], "lossless"),
         "411": (patched(jpeg_bytes(img, subsampling=0), 0xC0, 7, b"\x41"),
-                "sampling factors"),
+                None),
         # read by signature, not by extension: a WebP named .jpg
-        "webp": (webp.getvalue(), "neither PNG nor JPEG"),
+        "webp": (webp.getvalue(), None),
     }
 
 
 @pytest.mark.parametrize("case", list(refused()))
 def test_refused_with_the_file_named(tmp_path, case):
+    """Corrupt data raises naming the file; a kind the decoder does not
+    read reads as the JAX package reads it through PIL, or raises in both
+    packages."""
     data, why = refused()[case]
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(data)
+    if why is None:
+        assert_reads_as_pil(path)
+        return
+    if case in BY_PIL:    # PIL refuses it for the JAX package too
+        with pytest.raises(OSError):
+            jax_native.read_image_rgb(str(path))
     for read in (native.read_image, native.read_image_rgb):
         with pytest.raises(ValueError,
                            match=f"{re.escape(str(path))}.*{why}"):
