@@ -42,7 +42,7 @@ set to 0 just before it and read just after:
   then ``ProgressiveGanRewriter.apply_edit`` of ProgGAN's spire2tree
   (1000-z statistics, 2001 steps); no kernel is on this path;
 - four edit requests solved as one batch at layer 7
-  (``rewrite/multi.batch_apply_edits``, 2001 steps, one K2 forward and
+  (``rewrite/multi.batch_apply_edits``, 1001 steps, one K2 forward and
   backward a step for all four), twice (bit for bit), against two of them
   solved alone with cuDNN's deterministic and its default algorithms,
   their previews (batched and one edit at a time) and the edited params
@@ -53,7 +53,7 @@ set to 0 just before it and read just after:
   truncation-1.0 model, two 2001-step erases of the truncation-0.5 one,
   64 images; then ``python3 -m rewriting_torch.metrics.watermark`` in its
   own process on the checkpoint file;
-- the solves repeat: ``fast_linear_insert`` (2001 steps) and ``insert``
+- the solves repeat: ``fast_linear_insert`` (1001 steps) and ``insert``
   (201) at layer 7, and both (201) at layer 8, run twice bit for bit with
   cuDNN's deterministic algorithms, timed in turns against its default
   ones;
@@ -63,7 +63,7 @@ set to 0 just before it and read just after:
   selections' quantile ranks over a sketch of 1000 z, zeroed);
 - Search: ``ranking_for_key`` at layer 8 over 1000 z against a direct
   ranking, and the renders with the key outlined;
-- ``dissect`` of ProgGAN church-256 ``layer4`` over 1000 z upsampled to
+- ``dissect`` of ProgGAN church-256 ``layer4`` over 400 z upsampled to
   64x64, with a toy segmenter (phase 28 runs the real one); no kernel
   on this path;
 - the all-weights "overfit" baseline (``apply_overfit``, 201 steps, plain
@@ -152,7 +152,16 @@ set to 0 just before it and read just after:
   ``tests/data/images`` (palette, 1/2/4/16-bit and interlaced PNG, WebP,
   BMP, GIF, 4:1:1 and multi-scan JPEG ...) through ``read_image_rgb``,
   ``read_image`` and ``read_batches`` against PIL's decode on the card's
-  host, 0 values apart.  No kernel is on this path.
+  host, 0 values apart.  No kernel is on this path;
+- the port's twelve notebooks (``notebooks/torch/``), read as JSON and
+  run cell by cell in one namespace with no Jupyter, each on its
+  released-checkpoint branch (seeded files under the released names:
+  phase 12's church-256, phase 34's faces-1024, phase 25's SlimNet, face
+  parser and netpqc, and a ProgGAN kitchen-256): the editing interface
+  (1000 z, the 2001-step dome2spire edit at layer 8, nine canvases; it
+  must launch K2), the reflection study (its renders held against the
+  same cells on the CPU) and the ten stats notebooks, cut to 32 images;
+  each notebook's seconds, launches and whether its results are finite.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -246,6 +255,10 @@ BATCH_REQUESTS = ("dome2tree", "sky2tree", "spire2tree", "tree2building")
 BATCH_LOSS_TOL = 1e-4
 BATCH_OUTPUT_FLOOR = 0.05
 BATCH_DEFAULT_RUNS = 3
+# the solves' steps in phases 16 and 33 (whose losses are held to phase
+# 16's), and phase 19's layer-7 fast solve: 2001 until phase 40 came
+BATCH_STEPS = 1001
+DISSECT_SIZE = 400      # phase 23's z (1000 until then)
 # phase 18: the erase's units, as the paper's watermark.sh runs it (30
 # and 60; the command line's default, 1, is one unit of the 512, and on
 # seeded weights its goal lies so near the unedited output that the
@@ -1963,7 +1976,7 @@ UPP_WIDTHS = {"object": 335, "material": 26, "scene": 365, "owners": 40,
 COLOURS = ("black", "blue", "brown", "gray", "green", "orange", "pink",
            "purple", "red", "white", "yellow")
 SEG_TOL = 1e-4          # heads' scores card vs CPU, of max; label margins
-QUICKDISSECT_SIZE = 200
+QUICKDISSECT_SIZE = 100   # z of phase 28's command line (200 until PR 22)
 
 
 def upp_labeldata(widths=UPP_WIDTHS) -> dict:
@@ -4148,12 +4161,14 @@ def run_slice12(weights: str, clean_dir: str, counters) -> tuple:
 
 
 def slice12_counts() -> dict:
-    """The kernels' launch counters, K1's two modes apart."""
+    """The kernels' launch counters, K1's two modes and K2's two
+    directions apart."""
     from rewriting_torch.ops import blur2d as kblur
     from rewriting_torch.ops import upconv_blur as kup
     from rewriting_torch.ops import upsample2x as kup2
     return {"k1": kup.launches, "k1_bf16": kup.launches_bf16,
-            "k2": kblur.launches, "k2_general": kblur.general_launches,
+            "k2": kblur.launches, "k2_backward": kblur.backward_launches,
+            "k2_general": kblur.general_launches,
             "k3": kup2.launches + kup2.general_launches}
 
 
@@ -5062,6 +5077,218 @@ def add_slice16(kernels: dict, jpeg: dict) -> None:
         kernels[name]["jpeg_launches"] = jpeg["launches"][key]
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the port's notebooks (notebooks/torch/), run with no Jupyter
+# ---------------------------------------------------------------------------
+
+NOTEBOOK_DIR = os.path.join(ROOT, "notebooks", "torch")
+NOTEBOOK_IMAGES = 32    # the stats notebooks' n_images here (theirs 8-200)
+CHURCH_REAL = "model.size == 256 and len(seglabels) == NETPQC_LABELS"
+# each notebook: (what shows that it took its released-checkpoint branch,
+# the results it ends with, which must be finite), expressions in its
+# namespace; NETPQC_LABELS is the seeded netpqc's label count
+NOTEBOOKS = {
+    "rewriting-interface": (
+        "real_weights is True and model.size == 256 and n_z == 1000 "
+        "and layernum == 8 and len(interface.canvases) == 9",
+        ("gw.target_weight()", "gw.c_matrix")),
+    "reflection-rule-change": (
+        "layer == 'layer6' and n_z == 100 and "
+        "imgs.shape == (8, 256, 256, 3)", ("imgs", "acts", "edited")),
+    "stats/segmentation-stats": (
+        CHURCH_REAL, ("counts", "[r['iou'] for r in records['units']]")),
+    "stats/segmentation-stats-dome2tree": (
+        CHURCH_REAL, ("before_counts", "after_counts", "moved")),
+    "stats/segmentation-stats-comparison": (CHURCH_REAL, ("counts",)),
+    "stats/dome-area-profile": (CHURCH_REAL, ("fb", "fa")),
+    "stats/folder-segmentation": (CHURCH_REAL, ("counts",)),
+    "stats/folder-segmentation-resumable": (CHURCH_REAL, ("counts",)),
+    "stats/folder-segmentation-sharded": (CHURCH_REAL, ("counts",)),
+    # the fallbacks alone bind `net`, a random BiSeNet
+    "stats/face-label-stats": (
+        "model.size == 1024 and 'net' not in globals()", ("fracs",)),
+    "stats/attribute-comparison": (
+        "'net' not in globals()", ("info", "baseline")),
+    "stats/ffhq-label-stats": (
+        "model.size == 1024 and os.path.isfile(ckpt)", ("freq", "probs")),
+}
+
+
+def run_notebook(path: str, overrides=None, ns=None) -> dict:
+    """Run the code cells of the notebook at `path` in order in one
+    namespace, as its kernel would, with no Jupyter; after code cell i,
+    the source ``overrides[i]`` if there is one (cell 0 of a port notebook
+    is its parameters cell, cell 1 its model cell).  Returns the
+    namespace."""
+    with open(path) as f:
+        cells = [c for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    ns = {"__name__": "__main__"} if ns is None else ns
+    for i, cell in enumerate(cells):
+        exec(compile("".join(cell["source"]), f"{path} [code cell {i}]",
+                     "exec"), ns)
+        if overrides and i in overrides:
+            exec(compile(overrides[i], f"[override after code cell {i}]",
+                         "exec"), ns)
+    return ns
+
+
+@contextlib.contextmanager
+def notebook_sandbox(**env):
+    """`env` in os.environ, and a fresh working directory and $TMPDIR (the
+    notebooks write relative paths and ``tempfile.mkdtemp``s) within; the
+    environment and the working directory restored after, both removed."""
+    saved, here = dict(os.environ), os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="notebook_") as work:
+        tmp = os.path.join(work, "tmp")
+        os.makedirs(tmp)
+        os.environ.update(env, TMPDIR=tmp)
+        tempfile.tempdir = None             # read $TMPDIR again
+        os.chdir(work)
+        try:
+            yield work
+        finally:
+            os.chdir(here)
+            os.environ.clear()
+            os.environ.update(saved)
+            tempfile.tempdir = None
+
+
+def finite_values(value) -> bool:
+    """Whether every number in `value` is finite: tensors, arrays, numbers,
+    data frames, and dicts, lists and tuples of them (strings aside)."""
+    import numpy as np
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return bool(torch.isfinite(value.detach().double()).all())
+    if isinstance(value, dict):
+        return all(finite_values(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(finite_values(v) for v in value)
+    arr = np.asarray(value)
+    return arr.dtype.kind not in "fc" or bool(np.isfinite(arr).all())
+
+
+def write_notebook_weights(root: str) -> dict:
+    """The one checkpoint of phase 40 that no earlier phase writes: ProgGAN
+    kitchen-256 (reflection's), seeded, as the published file holds it.
+    Returns {file: MiB}."""
+    import torch
+
+    from rewriting_torch.models import ProgressiveGenerator
+    from rewriting_torch.models.zoo import PROGGAN_ZOO
+
+    pg = ProgressiveGenerator(resolution=256, device="cpu")
+    path = os.path.join(root, PROGGAN_ZOO["kitchen"])
+    torch.save(proggan_checkpoint(pg, pg.init_params(seed=5)), path)
+    return {PROGGAN_ZOO["kitchen"]: os.path.getsize(path) / 2 ** 20}
+
+
+def check_notebooks(weights: str, device: str = "cuda",
+                    names=tuple(NOTEBOOKS)) -> dict:
+    """Phase 40: each of the port's notebooks (`names` of ``NOTEBOOKS``)
+    run by ``run_notebook`` on `device`, in a sandbox whose
+    ``$REWRITING_TPU_WEIGHTS`` is `weights` (every checkpoint under its
+    released name) and whose ``$REWRITING_TPU_MASKS`` holds the published
+    edits.  The stats notebooks are cut to ``NOTEBOOK_IMAGES`` images
+    (their ``n_images``), at full width; the interface and reflection run
+    uncut.
+    Each must take its released-checkpoint branch and end with finite
+    results; the interface must launch K2; reflection's renders on the
+    card must lie within ``FORWARD_RTOL`` of max of the same cells on the
+    CPU.  Returns each notebook's seconds, launches and checks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from rewriting_torch.segment import load_segmenter
+
+    netpqc = None
+    if any(CHURCH_REAL in NOTEBOOKS[name][0] for name in names):
+        with weights_env(weights):
+            netpqc = len(load_segmenter("netpqc", device=device)[1])
+    env = {"REWRITING_TPU_WEIGHTS": weights, "REWRITING_TPU_MASKS": MASKS}
+    out, renders = {}, {}
+    for name in names:
+        real, results = NOTEBOOKS[name]
+        overrides = {0: f"device = {device!r}"}
+        if name.startswith("stats/"):
+            overrides[1] = f"n_images = min(n_images, {NOTEBOOK_IMAGES})"
+        if name.endswith("-sharded"):    # not the host's job identity
+            overrides[1] += "\nos.environ.update(RANK='0', WORLD_SIZE='1')"
+        base, t1 = slice12_counts(), time.time()
+        with notebook_sandbox(**env):
+            ns = run_notebook(os.path.join(NOTEBOOK_DIR, f"{name}.ipynb"),
+                              overrides)
+            sync(device)
+        seconds = time.time() - t1
+        launches = {k: v - base[k] for k, v in slice12_counts().items()}
+        took_real = bool(eval(real, ns, {"NETPQC_LABELS": netpqc}))
+        finite = {expr: finite_values(eval(expr, ns)) for expr in results}
+        size = ns.get("n_images", ns.get("n_z"))
+        out[name] = {"seconds": seconds, "images": size,
+                     "launches": launches, "real_branch": took_real,
+                     "finite": finite}
+        print(f"phase 40 notebook {name}: {seconds:.3f} s ({size} "
+              f"{'images' if 'n_images' in ns else 'z'}); launches K1 "
+              f"{launches['k1']}, K1 one-pass {launches['k1_bf16']}, K2 "
+              f"{launches['k2']} forward and {launches['k2_backward']} "
+              f"backward (general {launches['k2_general']}), K3 "
+              f"{launches['k3']}; released-checkpoint branch {took_real}; "
+              f"results finite {all(finite.values())} "
+              f"({', '.join(finite)})", flush=True)
+        if not took_real:
+            raise AssertionError(f"phase 40: {name} did not take its "
+                                 f"released-checkpoint branch ({real})")
+        if not all(finite.values()):
+            raise AssertionError(f"phase 40: {name} ended with results "
+                                 f"that are not finite: {finite}")
+        if launches["k2_general"]:
+            raise AssertionError(f"phase 40: {name} launched the general "
+                                 "blur kernel")
+        if name == "reflection-rule-change":
+            renders = {k: ns[k] for k in ("imgs", "edited", "unit")}
+        ns.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "rewriting-interface" in out and \
+            out["rewriting-interface"]["launches"]["k2"] <= 0:
+        raise AssertionError("phase 40: the interface never launched K2")
+    if renders:
+        t1 = time.time()
+        with notebook_sandbox(**env):
+            cpu = run_notebook(os.path.join(
+                NOTEBOOK_DIR, "reflection-rule-change.ipynb"),
+                {0: "device = 'cpu'"})
+        unit = renders.pop("unit")
+        rel = {k: float(np.abs(v - cpu[k]).max() / np.abs(cpu[k]).max())
+               for k, v in renders.items()}
+        out["reflection-rule-change"]["cpu"] = {
+            "seconds": time.time() - t1, "rel": rel,
+            "units": [unit, cpu["unit"]]}
+        print(f"phase 40 reflection on the card vs the CPU: max diff / max "
+              f"|CPU| {rel} (limit {FORWARD_RTOL}); the unit ablated "
+              f"{unit} / {cpu['unit']}; the CPU run {time.time() - t1:.3f} "
+              "s", flush=True)
+        if not max(rel.values()) <= FORWARD_RTOL:
+            raise AssertionError(f"phase 40: reflection's renders on the "
+                                 f"card differ from the CPU's by {rel}")
+    return out
+
+
+def add_slice18(kernels: dict, notebooks: dict) -> None:
+    """Phase 40 into the kernels line: each kernel's launches in each
+    notebook."""
+    for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                      ("upconv_blur_bf16", "k1_bf16"),
+                      ("upsample2x", "k3")):
+        kernels[name]["notebook_launches"] = {
+            nb: row["launches"][key] for nb, row in notebooks.items()}
+    kernels["blur2d"]["notebook_backward_launches"] = {
+        nb: row["launches"]["k2_backward"] for nb, row in notebooks.items()}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -5641,7 +5868,8 @@ def main() -> int:
 
         # 16. four edits as one batch at layer 7, previews, paramio ----------
         t0 = time.time()
-        batch = check_batched_edits(rw7, kblur, work.name)
+        batch = check_batched_edits(rw7, kblur, work.name,
+                                    steps=BATCH_STEPS)
         r2m7 = moment_cache(rw7)                # phase 33's edits read it
         kernels["blur2d"]["batch_solve_launches"] = batch["k2_loop"]
         kernels["blur2d"]["preview_launches"] = {
@@ -5683,7 +5911,7 @@ def main() -> int:
         # algorithms), on phase 11's rewriter, then phase 5's --------------
         t0 = time.time()
         base = counts()
-        repeat = {"layer7": check_determinism(rw7),
+        repeat = {"layer7": check_determinism(rw7, fast_steps=BATCH_STEPS),
                   "layer8": check_determinism(rw8, fast_steps=201)}
         del rw7
         slice8["determinism"] = since(base)
@@ -5718,7 +5946,8 @@ def main() -> int:
         # 23. dissection of ProgGAN church-256 layer4 (no kernel) -----------
         t0 = time.time()
         base = counts()
-        dis = check_dissect(pg["path"], work.name, lambda: since(base))
+        dis = check_dissect(pg["path"], work.name, lambda: since(base),
+                            sample_size=DISSECT_SIZE)
         slice8["dissect"] = dis["launches"]
         print(json.dumps({"dissect": dis}))
         phase("23 dissect", t0)
@@ -5840,7 +6069,8 @@ def main() -> int:
         # sharing the card over gloo, each a child job --------------------
         t0 = time.time()
         multi = check_multi_device(model, params, clean_dir, c8, r2m7,
-                                   batch["final_losses"], work.name)
+                                   batch["final_losses"], work.name,
+                                   steps=BATCH_STEPS)
         for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
                           ("upsample2x", "k3")):
             kernels[name]["slice11_launches"] = {
@@ -5903,6 +6133,17 @@ def main() -> int:
         add_slice16(kernels, jpeg)
         print(json.dumps({"jpeg": jpeg}))
         phase("39 JPEG reading", t0)
+
+        # 40. the port's twelve notebooks, on the checkpoints of phases 12,
+        # 25 and 34 and a ProgGAN kitchen file; K2 on the interface's path
+        t0 = time.time()
+        files = write_notebook_weights(weights9)
+        print("seeded ProgGAN kitchen checkpoint written: " + ", ".join(
+            f"{k} {v:.1f} MiB" for k, v in files.items()))
+        notebooks = check_notebooks(weights9)
+        add_slice18(kernels, notebooks)
+        print(json.dumps({"notebooks": notebooks}))
+        phase("40 notebooks", t0)
     finally:
         work.cleanup()
         keep.cleanup()
