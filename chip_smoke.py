@@ -160,8 +160,16 @@ set to 0 just before it and read just after:
   parser and netpqc, and a ProgGAN kitchen-256): the editing interface
   (1000 z, the 2001-step dome2spire edit at layer 8, nine canvases; it
   must launch K2), the reflection study (its renders held against the
-  same cells on the CPU) and the ten stats notebooks, cut to 32 images;
-  each notebook's seconds, launches and whether its results are finite.
+  same cells on the CPU) and the ten stats notebooks, cut to 24 images;
+  each notebook's seconds, launches and whether its results are finite;
+- the published files downloaded on a miss: a loopback HTTP server laid
+  out as the publication servers serves phase 12's church-256 checkpoint,
+  phase 15's ProgGAN church in the legacy serialization, the repo's
+  ``dome2tree.json`` and phase 25's files; with empty weights and masks
+  directories the zoo, the mask registry and
+  ``scripts/torch_fetch_weights.py`` fetch them byte for byte, the
+  downloaded church-256 samples 16 z (K2), and a file the server lacks
+  raises naming its URL.
 
 K2 has two kernels: the separable row-band kernel, which every path runs
 (the model's blur taps are rank 1), and the general k x k kernel for taps
@@ -5082,7 +5090,8 @@ def add_slice16(kernels: dict, jpeg: dict) -> None:
 # ---------------------------------------------------------------------------
 
 NOTEBOOK_DIR = os.path.join(ROOT, "notebooks", "torch")
-NOTEBOOK_IMAGES = 32    # the stats notebooks' n_images here (theirs 8-200)
+# the stats notebooks' n_images here (theirs 8-200): 32 until phase 41 came
+NOTEBOOK_IMAGES = 24
 CHURCH_REAL = "model.size == 256 and len(seglabels) == NETPQC_LABELS"
 # each notebook: (what shows that it took its released-checkpoint branch,
 # the results it ends with, which must be finite), expressions in its
@@ -5287,6 +5296,280 @@ def add_slice18(kernels: dict, notebooks: dict) -> None:
             nb: row["launches"][key] for nb, row in notebooks.items()}
     kernels["blur2d"]["notebook_backward_launches"] = {
         nb: row["launches"]["k2_backward"] for nb, row in notebooks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 41: the published files downloaded on a miss, from a loopback
+# server laid out as the publication servers
+# ---------------------------------------------------------------------------
+
+# the fetch script's groups phase 41 serves whole (phase 25's files)
+FETCH_GROUPS = ("upp", "face", "fid", "slimnet")
+DOWNLOAD_NZ = 16        # z the downloaded church-256 samples on the card
+DOWNLOAD_K2 = 6         # K2 launches of a church-256 forward, K1 off
+
+
+def on_loopback(url: str, base: str) -> str:
+    """`url` on the loopback server at `base`: its host becomes the first
+    directory, so one server stands in for every publication server."""
+    return base + url.split("://", 1)[1]
+
+
+def closed_url() -> str:
+    """A loopback URL nothing listens on: a connect there is refused at
+    once."""
+    return f"http://127.0.0.1:{free_port()}/"
+
+
+@contextlib.contextmanager
+def loopback_server(root: str):
+    """An HTTP server on 127.0.0.1 serving the files under `root`, in a
+    thread of this process; yields its base URL and stops on leaving."""
+    import functools
+    import http.server
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=root))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+@contextlib.contextmanager
+def publication_urls(base: str, *modules):
+    """Every URL constant of `modules` (an upper-case name whose value
+    starts with http:// or https://; default the port's zoo and mask
+    registry) moved onto the loopback server at `base` (``on_loopback``),
+    and restored on leaving."""
+    if not modules:
+        from rewriting_torch.metrics import load_mask
+        from rewriting_torch.models import zoo
+        modules = (zoo, load_mask)
+    saved = [(module, name, value) for module in modules
+             for name, value in list(vars(module).items())
+             if name.isupper() and isinstance(value, str)
+             and value.startswith(("http://", "https://"))]
+    try:
+        for module, name, value in saved:
+            setattr(module, name, on_loopback(value, base))
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+
+
+def fetch_script():
+    """``scripts/torch_fetch_weights.py`` as a module."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import torch_fetch_weights
+    finally:
+        sys.path.remove(os.path.join(ROOT, "scripts"))
+    return torch_fetch_weights
+
+
+def check_downloads(checkpoint: str, proggan_path: str, weights: str,
+                    device="cuda", size=None, nz: int = DOWNLOAD_NZ) -> dict:
+    """Phase 41: the zoo, the mask registry and
+    ``scripts/torch_fetch_weights.py`` download what they miss from a
+    loopback server (``loopback_server``) laid out as the publication
+    servers' paths, holding phase 12's ``stylegan2_church.pt``
+    (`checkpoint`), phase 15's ProgGAN church (`proggan_path`) saved under
+    its released name in the legacy (pre-1.6) serialization, the repo's
+    ``dome2tree.json``, and the files of `weights` (phase 25's seeded
+    Inception, SlimNet, face parser and unified parsing) that the fetch
+    script's ``FETCH_GROUPS`` name.  With empty weights and masks
+    directories and the port's URL constants on the server: each download
+    is the served file byte for byte and the params are the files' bit for
+    bit; the downloaded church model (`size`, default its 256) samples `nz`
+    z on `device` with K2 launched ``DOWNLOAD_K2`` times on the card (the
+    counts set to 0 just before), K1 and K3 not at all; a file the server
+    lacks raises ``FileNotFoundError`` naming its URL and leaves no
+    ``.tmp``; the fetch script fetches its groups, then nothing on a
+    second run.  Returns the phase's numbers; raises on any failure."""
+    import io
+
+    import torch
+
+    from rewriting_torch.core import leaves
+    from rewriting_torch.metrics import load_mask
+    from rewriting_torch.models import zoo
+    from rewriting_torch.ops import blur2d as kblur
+    from rewriting_torch.ops import upconv_blur as kup
+    from rewriting_torch.ops import upsample2x as kup2
+    from rewriting_torch.utils.device import resolve_device
+    from rewriting_torch.utils.zdataset import standard_z_sample
+
+    device = resolve_device(device)
+    script = fetch_script()
+    out = {}
+
+    def same_params(got, want, what):
+        got, want = dict(leaves(got)), dict(leaves(want))
+        if got.keys() != want.keys() or not all(
+                torch.equal(got[k], want[k]) for k in got):
+            raise AssertionError(f"phase 41: {what}'s params differ from "
+                                 "the served file's")
+        return len(got)
+
+    def same_bytes(path, src, what):
+        if file_bytes(path) != file_bytes(src):
+            raise AssertionError(f"phase 41: {what} is not the served file "
+                                 "byte for byte")
+        return os.path.getsize(path)
+
+    with tempfile.TemporaryDirectory(prefix="published_") as tmp:
+        served = os.path.join(tmp, "served")
+
+        def place(url, src=None):
+            """The served path of `url`, a link to `src` if given."""
+            path = os.path.join(served, url.split("://", 1)[1])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            if src is not None:
+                os.symlink(os.path.abspath(src), path)
+            return path
+
+        t1 = time.time()
+        sg_src = place(zoo.STYLEGAN2_URL + "stylegan2_church.pt", checkpoint)
+        pg_src = place(zoo.PROGGAN_URL + zoo.PROGGAN_ZOO["church"])
+        torch.save(zoo.load_state(proggan_path), pg_src,
+                   _use_new_zipfile_serialization=False)
+        mask_src = place(load_mask.MASK_URLS + "dome2tree.json", MASK)
+        with weights_env(weights):
+            held = script.plan(FETCH_GROUPS)
+        for url, src in held:
+            place(url, src)
+        out["serve_setup_s"] = time.time() - t1
+
+        wd, md = os.path.join(tmp, "weights"), os.path.join(tmp, "masks")
+        with loopback_server(served) as base, publication_urls(base), \
+                environment(REWRITING_TPU_WEIGHTS=wd,
+                            REWRITING_TPU_MASKS=md):
+            t1 = time.time()
+            model, params = zoo.load_seq_stylegan(
+                "church", truncation=0.5, size=size, device=device)
+            out["stylegan2_s"] = time.time() - t1
+            out["stylegan2_bytes"] = same_bytes(
+                os.path.join(wd, "stylegan2_church.pt"), sg_src,
+                "the downloaded stylegan2_church.pt")
+            out["stylegan2_tensors"] = same_params(
+                params, zoo.load_seq_stylegan(
+                    "church", path=checkpoint, truncation=0.5, size=size,
+                    device=device)[1], "the downloaded church")
+            t1 = time.time()
+            pg_model, pg_params = zoo.load_proggan("church", device=device)
+            out["proggan_s"] = time.time() - t1
+            out["proggan_bytes"] = same_bytes(
+                os.path.join(wd, zoo.PROGGAN_ZOO["church"]), pg_src,
+                "the downloaded ProgGAN church")
+            out["proggan_tensors"] = same_params(pg_params, zoo.load_proggan(
+                "church", path=proggan_path, device=device)[1],
+                "the downloaded ProgGAN church")
+            mask_path = load_mask.load_mask_info("dome2tree")[0]
+            out["mask_bytes"] = same_bytes(mask_path, mask_src,
+                                           "the downloaded dome2tree.json")
+
+            z = standard_z_sample(nz, model.z_dim, seed=5)
+            kup.set_fused_upconv("off", min_res=256)    # the default gate
+            kup.launches = kup.launches_bf16 = kup2.launches = 0
+            kup2.general_launches = 0
+            kblur.launches = kblur.backward_launches = 0
+            kblur.general_launches = 0
+            sync(device)
+            t1 = time.time()
+            with torch.no_grad():
+                imgs = model(params, z)
+            sync(device)
+            out["sample_s"] = time.time() - t1
+            out["launches"] = launches = slice12_counts()
+            res = model.size
+            if tuple(imgs.shape) != (nz, res, res, 3) or \
+                    not bool(torch.isfinite(imgs).all()):
+                raise AssertionError(f"phase 41: the downloaded model's "
+                                     f"{tuple(imgs.shape)} samples")
+            want_k2 = DOWNLOAD_K2 if device.type == "cuda" else 0
+            if launches != {**dict.fromkeys(launches, 0), "k2": want_k2}:
+                raise AssertionError(f"phase 41: sampling launched "
+                                     f"{launches}, want K2 {want_k2} alone")
+
+            missing = {}
+            for what, call, url in (
+                    ("stylegan2_bedroom.pt", lambda: zoo.load_seq_stylegan(
+                        "bedroom", size=size, device=device),
+                     zoo.STYLEGAN2_URL + "stylegan2_bedroom.pt"),
+                    ("smile.json", lambda: load_mask.load_mask_info("smile"),
+                     load_mask.MASK_URLS + "smile.json")):
+                t1 = time.time()
+                try:
+                    call()
+                except FileNotFoundError as e:
+                    if url not in str(e):
+                        raise AssertionError(f"phase 41: the error for "
+                                             f"{what} does not name {url}: "
+                                             f"{e}") from e
+                else:
+                    raise AssertionError(f"phase 41: {what} loaded, but the "
+                                         "server lacks it")
+                missing[what] = time.time() - t1
+            out["missing_s"] = missing
+            tmps = [name for d in (wd, md) for _, _, names in os.walk(d)
+                    for name in names if name.endswith(".tmp")]
+            if tmps:
+                raise AssertionError(f"phase 41: downloads left {tmps}")
+
+            runs = []
+            fetched = os.path.join(tmp, "fetched")
+            with publication_urls(base, script), environment(
+                    REWRITING_TPU_WEIGHTS=fetched,
+                    REWRITING_TPU_MASKS=os.path.join(fetched, "masks")):
+                for _ in range(2):
+                    printed = io.StringIO()
+                    t1 = time.time()
+                    with contextlib.redirect_stdout(printed):
+                        rc = script.main(["--only", *FETCH_GROUPS])
+                    runs.append({"rc": rc, "s": time.time() - t1, **json.loads(
+                        printed.getvalue().splitlines()[-1])})
+                dests = [dest for _, dest in script.plan(FETCH_GROUPS)]
+            n = len(held)
+            if [(r["rc"], r["fetched"], r["have"], r["failed"])
+                    for r in runs] != [(0, n, 0, 0), (0, 0, n, 0)]:
+                raise AssertionError(f"phase 41: the fetch script's two runs "
+                                     f"{runs}, want {n} fetched, then {n} "
+                                     "present")
+            out["fetch_bytes"] = sum(
+                same_bytes(dest, src, f"the fetched {os.path.basename(dest)}")
+                for dest, (_, src) in zip(dests, held))
+            out["fetch_runs"] = runs
+    mib = {k: out[f"{k}_bytes"] / 2 ** 20 for k in ("stylegan2", "proggan",
+                                                  "fetch")}
+    print(f"phase 41: stylegan2_church.pt ({mib['stylegan2']:.1f} MiB) "
+          f"downloaded and loaded in {out['stylegan2_s']:.3f} s, "
+          f"ProgGAN church (legacy serialization, "
+          f"{mib['proggan']:.1f} MiB) in "
+          f"{out['proggan_s']:.3f} s, both bit for bit; dome2tree.json byte "
+          f"for byte; {nz} z sampled in {out['sample_s']:.3f} s, launches "
+          f"{out['launches']}; missing files refused by URL in "
+          f"{', '.join(f'{v:.3f}' for v in missing.values())} s; the fetch "
+          f"script fetched {len(held)} files ({mib['fetch']:.1f} MiB) in "
+          f"{runs[0]['s']:.3f} s, then none in {runs[1]['s']:.3f} s")
+    return out
+
+
+def add_slice19(kernels: dict, downloads: dict) -> None:
+    """Phase 41 into the kernels line: each kernel's launches there."""
+    for name, key in (("blur2d", "k2"), ("upconv_blur", "k1"),
+                      ("upconv_blur_bf16", "k1_bf16"),
+                      ("upsample2x", "k3")):
+        kernels[name]["download_launches"] = downloads["launches"][key]
 
 
 def main() -> int:
@@ -6144,6 +6427,17 @@ def main() -> int:
         add_slice18(kernels, notebooks)
         print(json.dumps({"notebooks": notebooks}))
         phase("40 notebooks", t0)
+
+        # 41. the published files downloaded on a miss from a loopback
+        # server: phases 12's, 15's and 25's files; K2 on the downloaded
+        # church-256's samples
+        t0 = time.time()
+        downloads = check_downloads(
+            os.path.join(work.name, "weights", "stylegan2_church.pt"),
+            pg["path"], weights9)
+        add_slice19(kernels, downloads)
+        print(json.dumps({"downloads": downloads}))
+        phase("41 downloads on a miss", t0)
     finally:
         work.cleanup()
         keep.cleanup()

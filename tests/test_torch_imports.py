@@ -362,6 +362,37 @@ def test_the_sharded_paths_import_no_jax():
     assert proc.stdout.strip() == "[]"
 
 
+_IMPORT_FILES = """
+import importlib.util, os, sys
+for name in ("jax", "jaxlib", "rewriting_tpu"):
+    sys.modules[name] = None   # any import of these now raises ImportError
+for path in sys.argv[1:]:
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(n for n, m in sys.modules.items()
+             if m is not None and n.split(".")[0] in ("jax", "jaxlib",
+                                                      "rewriting_tpu")))
+"""
+
+
+def test_fetch_script_runbook_and_real_weights_suite_import_no_jax():
+    """``scripts/torch_fetch_weights.py``, ``scripts/
+    torch_real_weights_report.py`` and ``tests/test_torch_real_weights.py``
+    import nothing of jax or the JAX package: they run where jax is
+    absent."""
+    files = [ROOT / "scripts" / "torch_fetch_weights.py",
+             ROOT / "scripts" / "torch_real_weights_report.py",
+             ROOT / "tests" / "test_torch_real_weights.py"]
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_FILES,
+                           *map(str, files)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for path in files:
+        assert "rewriting_tpu" not in path.read_text(), path
+
+
 def test_slice15_helpers_raise_without_cuda(no_cuda, capsys):
     """Phase 38's helpers run on the card unless given ``device="cpu"``:
     without CUDA they raise before starting a job, and

@@ -6,8 +6,9 @@ its model cell; each binds every name its JAX notebook binds; and
 byte for byte.
 
 The notebooks run in process through ``chip_smoke.run_notebook`` (no
-Jupyter), in a sandbox whose ``$REWRITING_TPU_WEIGHTS`` is empty, so each
-takes its tiny seeded branch.  The stats notebooks are cut to 4 images
+Jupyter), in a sandbox whose ``$REWRITING_TPU_WEIGHTS`` is empty, with the
+zoo's URLs at a closed loopback port, so each takes its tiny seeded
+branch.  The stats notebooks are cut to 4 images
 by a cell run after their model cell, as the card's phase 40 cuts them to
 32; their generators and segmenters keep their own widths.
 """
@@ -39,6 +40,16 @@ DISPLAY_ONLY_PIL = ("stats/segmentation-stats", "stats/face-label-stats",
 # the calls of a model cell that build a generator, each on `device`
 BUILDERS = ("load_seq_stylegan", "load_proggan", "SeqStyleGAN2",
             "ProgressiveGenerator")
+
+
+@pytest.fixture(autouse=True)
+def closed_publication_servers():
+    """The port's zoo and mask registry URLs at a loopback port nothing
+    listens on: a notebook's missing checkpoint fails its download at
+    once, reaching no other host, and the notebook takes its tiny
+    branch."""
+    with chip_smoke.publication_urls(chip_smoke.closed_url()):
+        yield
 
 
 def code_cells(path):

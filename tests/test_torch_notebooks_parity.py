@@ -4,7 +4,8 @@ holds the dome2tree segmentation statistics likewise), and phase 40's
 check of the notebooks on the CPU.
 
 Each pair runs in one sandbox (``chip_smoke.notebook_sandbox``: an empty
-``$REWRITING_TPU_WEIGHTS``, so both take their tiny branch).  The JAX
+``$REWRITING_TPU_WEIGHTS``, and both packages' publication URLs at a
+closed loopback port, so both take their tiny branch).  The JAX
 notebook runs first, on the CPU; its generator's params (and, for
 dome2tree, its segmenter's) are carried into the port notebook by cells
 run after the port's model and segmenter cells (``convert.
@@ -32,7 +33,11 @@ import pytest
 import torch
 
 import chip_smoke
+from rewriting_torch.metrics import load_mask
+from rewriting_torch.models import zoo
 from rewriting_torch.utils.renormalize import decode_png
+from rewriting_tpu.metrics import load_mask as jax_load_mask
+from rewriting_tpu.models import zoo as jax_zoo
 
 torch.set_num_threads(1)
 
@@ -54,6 +59,15 @@ segmodel, seglabels = load_segmenter(
 """
 
 
+def closed_publication_servers():
+    """Both packages' zoo and mask registry URLs at a loopback port nothing
+    listens on, within: each downloads a missing file, so a notebook's
+    miss fails at once, reaching no other host, and it takes its tiny
+    branch."""
+    return chip_smoke.publication_urls(chip_smoke.closed_url(), zoo,
+                                       load_mask, jax_zoo, jax_load_mask)
+
+
 def numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -65,7 +79,8 @@ def run_pair(name, tmp_path, carry_segmenter=False):
     the notebooks' directories are) lasts as long as the context."""
     weights = tmp_path / "weights"
     weights.mkdir()
-    with chip_smoke.notebook_sandbox(REWRITING_TPU_WEIGHTS=str(weights)):
+    with closed_publication_servers(), chip_smoke.notebook_sandbox(
+            REWRITING_TPU_WEIGHTS=str(weights)):
         jns = chip_smoke.run_notebook(str(ROOT / "notebooks" /
                                           f"{name}.ipynb"))
         ns = {"__name__": "__main__",
@@ -135,7 +150,8 @@ def test_phase40_runs_on_the_cpu_when_asked(tmp_path):
     assert cpu["units"][0] == cpu["units"][1]
     empty = tmp_path / "empty"
     empty.mkdir()
-    with pytest.raises(AssertionError, match="released-checkpoint branch"):
+    with closed_publication_servers(), pytest.raises(
+            AssertionError, match="released-checkpoint branch"):
         chip_smoke.check_notebooks(str(empty), device="cpu",
                                    names=names[:1])
 

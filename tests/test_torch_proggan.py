@@ -21,12 +21,14 @@ the zoo's loader and ``ProgressiveGanRewriter``.
 """
 
 import argparse
+import os
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from conftest import blob
 from rewriting_tpu.models import proggan as jax_proggan
 from rewriting_tpu.models import zoo as jax_zoo
@@ -220,9 +222,15 @@ def test_load_proggan_path_matches_jax(golden, tmp_path, form):
 
 
 def test_load_proggan_missing_file(tmp_path, monkeypatch):
+    """A missing checkpoint raises naming the file and the URL its download
+    failed from (the zoo's URL at a loopback port nothing listens on)."""
+    closed = chip_smoke.closed_url()
+    monkeypatch.setattr(zoo, "PROGGAN_URL", closed)
     monkeypatch.setenv("REWRITING_TPU_WEIGHTS", str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="proggan_bedroom"):
+    with pytest.raises(FileNotFoundError, match="proggan_bedroom") as e:
         zoo.load_proggan("bedroom", device="cpu")
+    assert closed + zoo.PROGGAN_ZOO["bedroom"] in str(e.value)
+    assert os.listdir(tmp_path) == []
 
 
 # -- the rewriter ------------------------------------------------------------

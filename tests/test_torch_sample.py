@@ -11,6 +11,7 @@ that the two forwards compute in other orders may differ by one).
 import io
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ import PIL.Image
 import pytest
 import torch
 
+import chip_smoke
 from rewriting_tpu.metrics import load_mask as jax_load_mask
 from rewriting_tpu.metrics import sample as jax_sample
 from rewriting_tpu.models.stylegan2 import SeqStyleGAN2 as JaxSeqStyleGAN2
@@ -168,21 +170,28 @@ def test_sample_edited_writes_edited_images(pair, tmp_path, monkeypatch):
     assert _lsb(_read(str(tmp_path / "edited" / "2.png")), direct) <= 1
 
 
-def test_load_mask_info_matches_jax(monkeypatch):
-    """Every published edit present in the masks directory resolves as in
-    the JAX package; a missing one raises and downloads nothing."""
-    monkeypatch.setenv("REWRITING_TPU_MASKS", MASKS)
+def test_load_mask_info_matches_jax(monkeypatch, tmp_path):
+    """Every published edit present in the masks directory (a copy of the
+    repo's) resolves as in the JAX package; a missing one raises naming
+    the file, its URL and $REWRITING_TPU_MASKS once its download fails (the
+    registry's URL at a loopback port nothing listens on)."""
+    closed = chip_smoke.closed_url()
+    monkeypatch.setattr(load_mask, "MASK_URLS", closed)
+    masks = str(tmp_path / "masks")
+    shutil.copytree(MASKS, masks)
+    monkeypatch.setenv("REWRITING_TPU_MASKS", masks)
     for name, (dataset, fname, layer) in load_mask.name2info.items():
         assert jax_load_mask.name2info[name] == [dataset, fname, layer]
         if not os.path.exists(os.path.join(MASKS, dataset, fname)):
-            with pytest.raises(FileNotFoundError, match=fname):
+            with pytest.raises(FileNotFoundError, match=fname) as e:
                 load_mask.load_mask_info(name)
+            assert closed + fname in str(e.value)
             continue
         assert load_mask.load_mask_info(name) == \
             jax_load_mask.load_mask_info(name)
         with open(os.path.join(MASKS, dataset, fname)) as f:
             assert load_mask.load_mask_request(name) == json.load(f)
-    monkeypatch.setenv("REWRITING_TPU_MASKS", os.path.join(MASKS, "none"))
+    monkeypatch.setenv("REWRITING_TPU_MASKS", str(tmp_path / "none"))
     with pytest.raises(FileNotFoundError, match="REWRITING_TPU_MASKS"):
         load_mask.load_mask_info("dome2tree")
 

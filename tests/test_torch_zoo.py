@@ -10,9 +10,11 @@ JAX package's.
   golden's keys and arrays exactly, and a rosinality-named dict (flat or
   ``g_ema``-wrapped) converts as the JAX converter converts its seq-named
   rename.
-- The zoo loads a ``.pt`` from ``path=`` or ``$REWRITING_TPU_WEIGHTS`` and
-  raises ``FileNotFoundError`` naming the file and its URL when it is
-  missing, without touching the network.  A training checkpoint with an
+- The zoo loads a ``.pt`` from ``path=`` or ``$REWRITING_TPU_WEIGHTS``; a
+  file missing there is downloaded, and a failed download (here from a
+  loopback port nothing listens on) raises ``FileNotFoundError`` naming
+  the file and its URL; a missing ``path=`` raises without touching the
+  network.  A training checkpoint with an
   ``argparse.Namespace`` under ``args`` loads through ``weights_only``,
   bit for bit as the JAX zoo loads it.
 - ``sample.main()`` and ``sample_edited.main()`` run on the CPU with the
@@ -268,15 +270,26 @@ def test_zoo_reads_a_training_checkpoint_with_args(church8, tmp_path,
             model, jax.tree_util.tree_map(np.asarray, jp)))
 
 
-def test_zoo_missing_file_names_the_file_and_its_url(tmp_path, monkeypatch,
-                                                      no_network):
+def test_zoo_missing_file_names_the_file_and_its_url(tmp_path, monkeypatch):
+    """A file missing from the weights directory is downloaded, as the JAX
+    zoo does; when the download fails (the zoo's URL here a loopback port
+    nothing listens on) the error names the file, the directory, the URL
+    and the download's own error, and nothing is left behind.  A missing
+    ``path=`` raises without trying the network."""
+    closed = chip_smoke.closed_url()
+    monkeypatch.setattr(zoo, "STYLEGAN2_URL", closed)
     monkeypatch.setenv("REWRITING_TPU_WEIGHTS", str(tmp_path))
     with pytest.raises(FileNotFoundError) as err:
         zoo.load_seq_stylegan("church", device="cpu")
     msg = str(err.value)
     assert "stylegan2_church.pt" in msg and str(tmp_path) in msg
-    assert zoo.STYLEGAN2_URL + "stylegan2_church.pt" in msg
+    assert closed + "stylegan2_church.pt" in msg
+    assert "Connection refused" in msg
     assert "REWRITING_TPU_WEIGHTS" in msg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a missing path= tried the network")
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
     with pytest.raises(FileNotFoundError, match="stylegan2_faces.pt"):
         zoo.load_seq_stylegan("faces", path=str(tmp_path / "none.pt"),
                               device="cpu")
